@@ -1,0 +1,499 @@
+#!/usr/bin/env python3
+"""Drive masa_tpu_torch once on one CUDA card, end to end.
+
+Run from the root of a checkout:  python3 chip_smoke.py
+
+Phases (any failure raises and the run exits non-zero):
+  1. the card's name and power limit; build csrc/strip.cu and
+     csrc/batched_strip.cu with nvcc;
+  2. each kernel against its plain PyTorch version on the card, exact
+     integer equality.  The strip kernel: SW/NW x four border types x full
+     and partial heights x flush on/off x best/last-column tracking x odd
+     widths, blocks reused on a capped grid, and a strip of more sub-strips
+     than the card holds at once (sampled intervals); then one main-path
+     shape (8192 rows x 2^20 columns), timed.  The batched strip kernel:
+     batches of mixed heights, widths and border codes, tall elements
+     that chain in one block, zero widths;
+  3. the golden real pairs through masa_tpu_torch.align(device="cuda"):
+     real1 must score 11367 ending at (16384, 15805), real2 32466;
+  4. the bench.py 1M x 1M homologous pair through the six pipeline stages
+     (pipeline.align_pair, then the stage-6 re-score): score 796634, stage 5
+     verified, the re-score equal, strip-kernel launches in stages 1, 2 and
+     3 and batched-kernel launches in stage 4;
+  5. the batched kernel at the main path's own shape: stage 4's first
+     level of that run, rebuilt from stage 3's crosspoints, timed against
+     its plain version.
+The last two lines are a JSON summary of the kernels and the contract
+line {"ok": true, "device": {...}}.  Without a CUDA device the script
+exits non-zero and prints no result.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+KERNELS = {  # name -> (source, the TPU kernel it replaces)
+    "strip": ("masa_tpu_torch/csrc/strip.cu",
+              "masa_tpu/ops/wavefront.py:518"),  # strip_pallas
+    "batched_strip": ("masa_tpu_torch/csrc/batched_strip.cu",
+                      "masa_tpu/ops/wavefront.py:1427"),  # ..._pallas_dyn
+}
+M_1M = 1 << 20
+SCORE_1M = 796634  # masa_tpu's full six-stage score on this pair
+NEG = -999999999
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def card_line() -> str:
+    r = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return r.stdout.strip().splitlines()[0]
+
+
+def build_kernels():
+    from masa_tpu_torch.ops import kernels
+
+    for name in KERNELS:
+        t0 = time.time()
+        path = kernels.build(name)
+        log(f"build: {os.path.relpath(path, REPO)} in "
+            f"{time.time() - t0:.1f} s")
+        for line in kernels.build_log.get(name, "").splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                log(f"  ptxas: {line.strip()}")
+    rows = kernels.block_rows()
+    log(f"strip kernel: {rows} rows per block, "
+        f"{kernels.resident_blocks()} blocks resident")
+    return rows
+
+
+def strip_inputs(rng, h, nj, border, params, dev):
+    """Random strip inputs on the card: homologous a/b, the border and the
+    row above per the border type (CUSTOM: arbitrary values)."""
+    import numpy as np
+    import torch
+
+    from masa_tpu_torch import InitType
+    from masa_tpu_torch.ops import wavefront as wf
+
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    a = rng.choice(bases, h).astype(np.uint8)
+    b = np.resize(a, nj).copy()
+    flip = rng.random(nj) < 0.25
+    b[flip] = rng.choice(bases, int(flip.sum()))
+    go, ge = params.gap_open, params.gap_ext
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)  # noqa
+    if border == InitType.CUSTOM:
+        bus_h = rng.integers(-40, 60, nj).astype(np.int32)
+        bus_f = np.where(rng.random(nj) < 0.2, NEG,
+                         rng.integers(-60, 40, nj)).astype(np.int32)
+        col_h = rng.integers(-40, 60, h).astype(np.int32)
+        col_e = np.where(rng.random(h) < 0.2, NEG,
+                         rng.integers(-60, 40, h)).astype(np.int32)
+        return (t(a), t(b), t(bus_h), t(bus_f), t(col_h), t(col_e),
+                int(rng.integers(-40, 60)))
+    # the first row's bus beside a left border from row i0 down
+    i0 = int(rng.integers(0, 5000))
+    bus_h, bus_f = wf.init_bus(border, nj, go, ge, dev)
+    k = torch.arange(i0, i0 + h + 1, device=dev)
+    col = wf.border_h(border, k, go, ge)
+    col_e = torch.full((h,), NEG, dtype=torch.int32, device=dev)
+    return t(a), t(b), bus_h, bus_f, col[1:].contiguous(), col_e, int(col[0])
+
+
+def compare(out_k, out_p, what):
+    """Exact equality of every output; returns the largest |difference|
+    (0 when equal; a difference raises)."""
+    worst = 0
+    for field in ("bus_h", "bus_f", "best", "lastcol_h", "lastcol_e",
+                  "rows_h", "rows_f"):
+        k, p = getattr(out_k, field), getattr(out_p, field)
+        if (k is None) != (p is None):
+            raise AssertionError(f"{what}: {field} present on one side only")
+        if k is None:
+            continue
+        if k.shape != p.shape:
+            raise AssertionError(f"{what}: {field} shapes {tuple(k.shape)} "
+                                 f"vs {tuple(p.shape)}")
+        d = int((k.long() - p.long()).abs().max())
+        worst = max(worst, d)
+        if d:
+            raise AssertionError(f"{what}: {field} differs (max |diff| {d})")
+    return worst
+
+
+def kernel_matrix(dev, block_rows):
+    """Phase 2a: the kernel equals the plain version, case by case."""
+    import numpy as np
+
+    from masa_tpu_torch import InitType, ScoreParams
+    from masa_tpu_torch.ops import kernels
+    from masa_tpu_torch.ops import wavefront as wf
+
+    rng = np.random.default_rng(7)
+    borders = (InitType.WITH_ZEROES, InitType.WITH_GAPS,
+               InitType.WITH_GAPS_OPENED, InitType.CUSTOM)
+    full = 2 * block_rows
+    cases = []
+    for sw in (True, False):
+        for bi, border in enumerate(borders):
+            params = ScoreParams() if bi % 2 == 0 else ScoreParams(2, -1, 2, 1)
+            # full height: flush on for half, every output requested
+            cases.append(dict(sw=sw, border=border, params=params, h=full,
+                              nj=(1000, 333, 1, 2501)[bi],
+                              flush=(512 if (bi + sw) % 2 else 0),
+                              track=True, lastcol=True))
+            # partial heights, odd widths, outputs toggled
+            cases.append(dict(sw=sw, border=border, params=params,
+                              h=(1, 1000, block_rows + 1, 3333)[bi],
+                              nj=(7, 1, 640, 1499)[bi],
+                              flush=(0, 100, 1024, 0)[bi],
+                              track=bi % 2 == 0, lastcol=bi in (1, 2)))
+    worst = 0
+    t0 = time.time()
+    for c in cases:
+        args = strip_inputs(rng, c["h"], c["nj"], c["border"], c["params"],
+                            dev)
+        p = c["params"]
+        kw = dict(match=p.match, mismatch=p.mismatch, gap_open=p.gap_open,
+                  gap_ext=p.gap_ext, sw=c["sw"], track_best=c["track"],
+                  store_lastcol=c["lastcol"], flush_every=c["flush"])
+        what = (f"{'SW' if c['sw'] else 'NW'} {c['border'].name} "
+                f"h={c['h']} nj={c['nj']} flush={c['flush']} "
+                f"track={c['track']} lastcol={c['lastcol']}")
+        worst = max(worst, compare(wf.strip(*args, **kw),
+                                   wf.strip_plain(*args, **kw), what))
+    # persistent blocks: 5 sub-strips on 2 blocks, each block reused
+    params = ScoreParams()
+    args = strip_inputs(rng, 5 * block_rows + 17, 300,
+                        InitType.WITH_ZEROES, params, dev)
+    kw = dict(match=params.match, mismatch=params.mismatch,
+              gap_open=params.gap_open, gap_ext=params.gap_ext, sw=True,
+              track_best=True, store_lastcol=True, flush_every=777)
+    out_k = wf.strip_out(*kernels.strip_cuda(*args, **kw, max_ctas=2))
+    worst = max(worst, compare(out_k, wf.strip_plain(*args, **kw),
+                               "SW h=5*block+17 on 2 persistent blocks"))
+    worst = max(worst, multi_wave(rng, dev, block_rows))
+    log(f"strip kernel vs plain: {len(cases) + 2} cases equal (max |diff| "
+        f"{worst}, tolerance 0) in {time.time() - t0:.1f} s")
+    return worst
+
+
+def multi_wave(rng, dev, block_rows):
+    """More sub-strips than the card holds at once, on a full grid: blocks
+    take a second sub-strip.  Each sampled flushed interval (the first, the
+    last of the first wave, the second wave, the partial last), recomputed
+    by the plain version from the kernel's row above it, must equal the
+    kernel's rows, bests and last column there."""
+    from masa_tpu_torch import InitType, ScoreParams
+    from masa_tpu_torch.ops import kernels
+    from masa_tpu_torch.ops import wavefront as wf
+
+    resident = kernels.resident_blocks()
+    n_sub = resident + 3
+    h, nj = n_sub * block_rows + 5, 300
+    params = ScoreParams()
+    args = strip_inputs(rng, h, nj, InitType.WITH_ZEROES, params, dev)
+    a, b, bus_h, bus_f, col_h, col_e, corner = args
+    kw = dict(match=params.match, mismatch=params.mismatch,
+              gap_open=params.gap_open, gap_ext=params.gap_ext, sw=True,
+              track_best=True, store_lastcol=True)
+    out = kernels.strip_cuda(*args, **kw, flush_every=block_rows)
+    _, _, best_v, best_j, last_h, last_e, rows_h, rows_f = out
+    worst = 0
+    for g in (0, resident - 1, resident, n_sub - 1, n_sub):
+        lo, hi = g * block_rows, min((g + 1) * block_rows, h)
+        above = ((bus_h, bus_f, corner) if g == 0 else
+                 (rows_h[g - 1], rows_f[g - 1], int(col_h[lo - 1])))
+        ref = wf.strip_plain(a[lo:hi], b, above[0], above[1], col_h[lo:hi],
+                             col_e[lo:hi], above[2], **kw)
+        bus = (rows_h[g], rows_f[g]) if g < n_sub else out[:2]
+        got = wf.StripOut(bus[0], bus[1],
+                          wf.merge_best(best_v[lo:hi], best_j[lo:hi]),
+                          last_h[lo:hi], last_e[lo:hi])
+        worst = max(worst, compare(got, ref, f"multi-wave h={h}: interval "
+                                   f"{g} of {n_sub + 1}"))
+    log(f"multi-wave: {h} rows = {n_sub} sub-strips on {resident} resident "
+        f"blocks, 5 sampled intervals equal")
+    return worst
+
+
+def batched_matrix(dev):
+    """Phase 2c: the batched kernel equals its plain version."""
+    import numpy as np
+    import torch
+
+    from masa_tpu_torch.ops import wavefront as wf
+
+    rng = np.random.default_rng(13)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    n = 1 << 16
+    s0 = rng.choice(bases, n).astype(np.uint8)
+    s1 = np.where(rng.random(n) < 0.1, rng.choice(bases, n), s0)
+    a, b = (torch.from_numpy(x).to(dev) for x in (s0, s1))
+    worst = 0
+    t0 = time.time()
+    cases = ((1, 1, 1), (300, 70, 130), (64, 600, 40), (5, 5000, 300),
+             (2000, 16, 2), (4096, 300, 300))
+    for k, (B, h_max, w_max) in enumerate(cases):
+        h = rng.integers(1, h_max + 1, B)
+        w = rng.integers(0, w_max + 1, B)
+        i0 = rng.integers(0, n - h)
+        j0 = np.clip(i0 + rng.integers(-50, 50, B), 0, n - w)
+        elems = np.stack([i0, h, j0, w, rng.integers(0, 3, B),
+                          rng.integers(0, 3, B)], 1).astype(np.int32)
+        kw = (dict(match=1, mismatch=-3, gap_open=3, gap_ext=2) if k % 2
+              else dict(match=2, mismatch=-1, gap_open=2, gap_ext=1))
+        got = wf.batched_strip(a, b, elems, max(w_max, 1), **kw)
+        want = wf.batched_strip_plain(a, b, elems, max(w_max, 1), **kw)
+        worst = max(worst, batched_diff(got, want,
+                                        f"B={B} h<={h_max} w<={w_max}"))
+    log(f"batched kernel vs plain: {len(cases)} cases equal (max |diff| "
+        f"{worst}, tolerance 0) in {time.time() - t0:.1f} s")
+    return worst
+
+
+def batched_diff(got, want, what):
+    worst = 0
+    for name, k, p in zip(("bus_h", "bus_f"), got, want):
+        if k.shape != p.shape:
+            raise AssertionError(f"{what}: {name} shapes {tuple(k.shape)} "
+                                 f"vs {tuple(p.shape)}")
+        d = int((k.long() - p.long()).abs().max())
+        if d:
+            raise AssertionError(f"{what}: {name} differs (max |diff| {d})")
+        worst = max(worst, d)
+    return worst
+
+
+def timed(fn, *args, **kw):
+    """fn's result and its time on the card in ms (CUDA events)."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn(*args, **kw)
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def main_shape(dev):
+    """Phase 2b: one strip at a main-path shape, kernel and plain timed."""
+    import numpy as np
+
+    from masa_tpu_torch import InitType, ScoreParams
+    from masa_tpu_torch.ops import wavefront as wf
+
+    h, nj, flush = 8192, M_1M, 2048
+    params = ScoreParams()
+    args = strip_inputs(np.random.default_rng(11), h, nj,
+                        InitType.WITH_ZEROES, params, dev)
+    kw = dict(match=params.match, mismatch=params.mismatch,
+              gap_open=params.gap_open, gap_ext=params.gap_ext, sw=True,
+              track_best=True, store_lastcol=False, flush_every=flush)
+    timed(wf.strip, *args, **kw)  # warm
+    out_k, ms = timed(wf.strip, *args, **kw)
+    out_p, plain_ms = timed(wf.strip_plain, *args, **kw)
+    err = compare(out_k, out_p, f"main shape {h}x{nj}")
+    log(f"main shape {h} x {nj} (SW, best, flush every {flush}): kernel "
+        f"{ms:.3f} ms ({h * nj / ms / 1e6:.2f} GCUPS), plain {plain_ms:.3f} "
+        f"ms ({h * nj / plain_ms / 1e6:.4f} GCUPS), equal")
+    return err, ms, plain_ms
+
+
+def stage4_level(s0, s1, cps, dev):
+    """Phase 5: the forward halves of stage 4's first level on the 1M pair
+    (rebuilt from stage 3's crosspoints, as batched_mm cuts them), kernel
+    and plain timed on the same inputs."""
+    import numpy as np
+    import torch
+
+    from masa_tpu_torch import ScoreParams
+    from masa_tpu_torch.ops import batched_mm
+    from masa_tpu_torch.ops import wavefront as wf
+
+    params = ScoreParams()
+    pending = [p for p in zip(cps, cps[1:])
+               if not batched_mm.is_done(*p, 16)]
+    _, fwd, _ = batched_mm.level_halves(pending, len(s0), len(s1))
+    elems = batched_mm.elems_of(fwd)
+    width = max(1, int(elems[:, 3].max()))
+    a, b = (torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+            for x in (s0, s1))
+    kw = dict(match=params.match, mismatch=params.mismatch,
+              gap_open=params.gap_open, gap_ext=params.gap_ext)
+    timed(wf.batched_strip, a, b, elems, width, **kw)  # warm
+    got, ms = timed(wf.batched_strip, a, b, elems, width, **kw)
+    want, plain_ms = timed(wf.batched_strip_plain, a, b, elems, width, **kw)
+    err = batched_diff(got, want, "stage-4 level 1")
+    cells = int((elems[:, 1].astype(np.int64) * elems[:, 3]).sum())
+    log(f"stage-4 level 1 forward halves: {len(elems)} elements, heights "
+        f"{int(elems[:, 1].min())}-{int(elems[:, 1].max())}, widths up to "
+        f"{width}, {cells} cells: kernel {ms:.3f} ms "
+        f"({cells / ms / 1e6:.2f} GCUPS), plain {plain_ms:.3f} ms, equal")
+    return err, ms, plain_ms
+
+
+def golden_pairs():
+    """Phase 3: the frozen real-genomic scores through align()."""
+    import masa_tpu_torch
+
+    g = os.path.join(REPO, "tests", "golden")
+    for name, score, end in (("real1", 11367, [16384, 15805]),
+                             ("real2", 32466, None)):
+        t0 = time.time()
+        aln = masa_tpu_torch.align(os.path.join(g, f"{name}_a.fa"),
+                                   os.path.join(g, f"{name}_b.fa"),
+                                   device="cuda")
+        got_end = [int(x) for x in aln.end]
+        log(f"{name}: score {aln.raw_score} end {got_end} in "
+            f"{time.time() - t0:.2f} s")
+        if aln.raw_score != score or (end and got_end != end):
+            raise AssertionError(f"{name}: expected {score} at {end}")
+
+
+def homolog(rng, seq, sub_rate=0.08, indel_every=1 << 16):
+    """bench.py's homolog: point substitutions + sparse short indels."""
+    import numpy as np
+
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    out = seq.copy()
+    idx = rng.random(len(seq)) < sub_rate
+    out[idx] = rng.choice(bases, int(idx.sum())).astype(np.uint8)
+    parts = []
+    prev = 0
+    for cut in range(indel_every, len(out), indel_every):
+        parts.append(out[prev:cut])
+        if rng.random() < 0.5:
+            parts.append(rng.choice(bases, int(rng.integers(1, 8))
+                                    ).astype(np.uint8))
+            prev = cut
+        else:
+            prev = cut + int(rng.integers(1, 8))
+    parts.append(out[prev:])
+    return np.concatenate(parts)
+
+
+def bench_pair():
+    """The 1M x 1M pair exactly as bench.py builds it."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    s0 = rng.choice(bases, size=M_1M).astype(np.uint8)
+    rng.choice(bases, size=M_1M)  # bench.py's s1 draw, kept for the stream
+    h1 = homolog(np.random.default_rng(1), s0, indel_every=1 << 16)
+    return s0, h1
+
+
+def full_run(s0, s1):
+    """Phase 4: the six stages on the 1M pair through align_pair, timed
+    and counted per stage.  Returns the launches of each kernel in the run
+    and stage 3's crosspoints."""
+    from masa_tpu_torch.ops import kernels
+    from masa_tpu_torch.stages import pipeline, stage6
+
+    counters = {"strip": kernels.strip_cuda,
+                "batched_strip": kernels.batched_strip_cuda}
+    pcfg = pipeline.PipelineConfig(device="cuda")
+    secs, launches, cps3, ncps = {}, {}, [], {}
+    seen = {k: 0 for k in counters}
+
+    def on_stage(name, seconds, out):
+        secs[name] = seconds
+        launches[name] = {k: c.launches - seen[k]
+                          for k, c in counters.items()}
+        seen.update({k: c.launches for k, c in counters.items()})
+        if isinstance(out, list):
+            ncps[name] = len(out)
+        if name == "stage3":
+            cps3.extend(out)
+        log(f"  {name}: {seconds:.2f} s, launches "
+            + ", ".join(f"{k} {v}" for k, v in launches[name].items()))
+
+    for c in counters.values():
+        c.launches = 0
+    aln = pipeline.align_pair(s0, s1, pcfg, on_stage=on_stage)
+    total_launches = {k: c.launches for k, c in counters.items()}
+    t0 = time.time()
+    rc = stage6.recheck(aln, s0, s1, pcfg.params)
+    secs["stage6"] = time.time() - t0
+    total = sum(secs.values())
+    log(f"1M pair: score {aln.raw_score} (stage-6 re-score {rc.score}), "
+        f"start {list(aln.start)} end {list(aln.end)}, crosspoints "
+        + ", ".join(f"{v} after {k}" for k, v in ncps.items()))
+    log(f"1M pair: {total:.2f} s in all, "
+        f"{len(s0) * len(s1) / total / 1e9:.2f} GCUPS whole run; per stage "
+        + json.dumps({k: round(v, 3) for k, v in secs.items()}))
+    if aln.raw_score != SCORE_1M or rc.score != SCORE_1M:
+        raise AssertionError(f"1M pair scored {aln.raw_score} (re-score "
+                             f"{rc.score}), expected {SCORE_1M}")
+    for s in ("stage1", "stage2", "stage3"):
+        if launches[s]["strip"] <= 0:
+            raise AssertionError(f"{s} launched no strip kernel")
+    if launches["stage4"]["batched_strip"] <= 0:
+        raise AssertionError("stage4 launched no batched strip kernel")
+    for k, n in total_launches.items():
+        if n <= 0:
+            raise AssertionError(f"the main path never launched {k}")
+    return total_launches, cps3
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: PyTorch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available; this script runs "
+              "only on a machine with a GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    try:
+        import masa_tpu_torch  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke: masa_tpu_torch not found beside chip_smoke.py "
+              f"({e}); run it from the root of a checkout", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    card = card_line()
+    log(f"card: {card}")
+    block_rows = build_kernels()
+    err = {"strip": kernel_matrix(dev, block_rows),
+           "batched_strip": batched_matrix(dev)}
+    err_main, ms, plain_ms = main_shape(dev)
+    err["strip"] = max(err["strip"], err_main)
+    times = {"strip": (ms, plain_ms)}
+    golden_pairs()
+    s0, s1 = bench_pair()
+    log(f"1M pair: {len(s0)} x {len(s1)}")
+    launches, cps3 = full_run(s0, s1)
+    err_lvl, ms, plain_ms = stage4_level(s0, s1, cps3, dev)
+    err["batched_strip"] = max(err["batched_strip"], err_lvl)
+    times["batched_strip"] = (ms, plain_ms)
+    log(json.dumps({"kernels": [{
+        "name": name, "route": "cuda", "source": src, "replaces": tpu,
+        "launches": launches[name], "max_abs_err": err[name],
+        "ms": times[name][0], "plain_ms": times[name][1]}
+        for name, (src, tpu) in KERNELS.items()]}))
+    log(card)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,246 @@
+"""Build and bind the hand-written Hopper kernels (``csrc/*.cu``).
+
+Each kernel source (``csrc/strip.cu``, ``csrc/batched_strip.cu``) is
+compiled with ``nvcc`` for ``sm_90a`` into its own shared library with a
+plain C interface, at first use, into ``masa_tpu_torch/_build/`` (named by
+the source's hash, so an edited source rebuilds), and bound with
+``ctypes``.  Nothing here runs when the module is imported: the CPU tests
+import it on hosts with no toolkit.
+
+``strip_cuda`` and ``batched_strip_cuda`` launch their kernels on
+PyTorch's current stream and count their launches in ``.launches``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+
+import torch
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCES = {name: os.path.join(_PKG, "csrc", f"{name}.cu")
+           for name in ("strip", "batched_strip")}
+BUILD_DIR = os.path.join(_PKG, "_build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_libs: dict = {}
+build_log: dict = {}  # name -> nvcc's stderr of this process's build
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    cands = [os.path.join(home, "bin", "nvcc")] if home else []
+    cands += [shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"]
+    for c in cands:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError(
+        "nvcc not found: the kernels are built from "
+        "masa_tpu_torch/csrc/*.cu with the CUDA toolkit "
+        "(set CUDA_HOME or put nvcc on PATH)")
+
+
+def build(name: str = "strip") -> str:
+    """Compile ``csrc/<name>.cu`` unless this source's library exists;
+    returns the library path."""
+    src = SOURCES[name]
+    with open(src, "rb") as fh:
+        digest = hashlib.sha256(fh.read()).hexdigest()[:16]
+    out = os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
+    r = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    if r.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{r.stderr}")
+    build_log[name] = r.stderr
+    os.replace(tmp, out)
+    return out
+
+
+_SIGNATURES = {
+    "strip": {
+        "masa_strip_block_rows": [],
+        "masa_strip_resident_blocks": [],
+        "masa_strip_launch": ["p"] * 6 + ["i"] * 11 + ["p"] * 8 + ["i", "p"],
+    },
+    "batched_strip": {
+        "masa_batched_strip_max_threads": [],
+        "masa_batched_strip_launch": (["p"] * 3 + ["i"] * 2 + ["p"] * 2
+                                      + ["i"] * 5 + ["p"]),
+    },
+}
+
+
+def _load(name: str = "strip"):
+    if name not in _libs:
+        lib = ctypes.CDLL(build(name))
+        types = {"p": ctypes.c_void_p, "i": ctypes.c_int}
+        for fn, args in _SIGNATURES[name].items():
+            getattr(lib, fn).argtypes = [types[x] for x in args]
+            getattr(lib, fn).restype = ctypes.c_int
+        _libs[name] = lib
+    return _libs[name]
+
+
+def block_rows() -> int:
+    """Rows one block of the strip kernel owns (ALPHA * THREADS)."""
+    return int(_load().masa_strip_block_rows())
+
+
+def resident_blocks() -> int:
+    """Strip-kernel blocks the current card holds at once."""
+    n = int(_load().masa_strip_resident_blocks())
+    if n < 1:
+        raise RuntimeError("could not query the card's occupancy")
+    return n
+
+
+def _check(name: str, x: torch.Tensor, dtype, n: int, dev) -> None:
+    if x.device != dev:
+        raise ValueError(f"{name} is on {x.device}, expected {dev}")
+    if x.dtype != dtype or x.dim() != 1 or x.numel() != n:
+        raise ValueError(f"{name} must be a ({n},) {dtype} tensor, got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def strip_cuda(a, b, bus_h, bus_f, col_h, col_e, corner: int, *,
+               match: int, mismatch: int, gap_open: int, gap_ext: int,
+               sw: bool, track_best: bool = False,
+               store_lastcol: bool = False, flush_every: int = 0,
+               max_ctas: int = 0):
+    """Launch the strip kernel (see ``csrc/strip.cu`` for the contract).
+
+    ``a`` (h,) and ``b`` (nj,) are uint8; the buses (nj,) and the left
+    border (h,) are int32, all on one CUDA device.  Returns the raw outputs
+    ``(bus_h, bus_f, best_v, best_j, last_h, last_e, rows_h, rows_f)``;
+    the unrequested ones are None.  ``max_ctas`` > 0 caps the persistent
+    blocks (0: as many as the card holds)."""
+    dev = b.device
+    if dev.type != "cuda":
+        raise ValueError(f"strip_cuda needs CUDA tensors, got {dev}")
+    h, nj = a.numel(), b.numel()
+    if h < 1 or nj < 1:
+        raise ValueError(f"empty strip ({h} rows x {nj} columns)")
+    _check("a", a, torch.uint8, h, dev)
+    _check("b", b, torch.uint8, nj, dev)
+    for name, x, n in (("bus_h", bus_h, nj), ("bus_f", bus_f, nj),
+                       ("col_h", col_h, h), ("col_e", col_e, h)):
+        _check(name, x, torch.int32, n, dev)
+    if flush_every < 0:
+        raise ValueError(f"flush_every must be >= 0, got {flush_every}")
+    lib = _load()
+    n_sub = -(-h // int(lib.masa_strip_block_rows()))
+    n_int = (h - 1) // flush_every if flush_every else 0
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.int32, device=dev)
+
+    # the kernel rewrites the bus in place, row block by row block
+    out_h, out_f = bus_h.clone(), bus_f.clone()
+    best_v, best_j = (empty(h), empty(h)) if track_best else (None, None)
+    last_h, last_e = (empty(h), empty(h)) if store_lastcol else (None, None)
+    rows_h, rows_f = (empty(n_int, nj), empty(n_int, nj)) if n_int \
+        else (None, None)
+    progress = torch.zeros(n_sub, dtype=torch.int32, device=dev)
+    error = torch.zeros(1, dtype=torch.int32, device=dev)
+
+    def ptr(x):
+        return ctypes.c_void_p(x.data_ptr() if x is not None else 0)
+
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.masa_strip_launch(
+            ptr(a), ptr(b), ptr(out_h), ptr(out_f), ptr(col_h), ptr(col_e),
+            int(corner), h, nj, match, mismatch, gap_open, gap_ext,
+            int(sw), int(track_best), int(store_lastcol), int(flush_every),
+            ptr(best_v), ptr(best_j), ptr(last_h), ptr(last_e),
+            ptr(rows_h), ptr(rows_f), ptr(progress), ptr(error),
+            int(max_ctas), ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"strip kernel launch failed: CUDA error {rc}")
+    strip_cuda.launches += 1
+    if int(error.item()):
+        raise RuntimeError("strip kernel: a sub-strip waited over 10 s for "
+                           "the bus of the sub-strip above it")
+    return out_h, out_f, best_v, best_j, last_h, last_e, rows_h, rows_f
+
+
+strip_cuda.launches = 0
+
+
+# batched_strip_cuda's per-element fields, in the kernel's order
+ELEM_FIELDS = ("i0", "h", "j0", "w", "row_code", "col_code")
+_ALPHA = 8  # rows per thread of csrc/batched_strip.cu
+
+
+def batched_strip_cuda(a, b, elems, width: int, *, match: int,
+                       mismatch: int, gap_open: int, gap_ext: int):
+    """Launch the batched strip kernel (see ``csrc/batched_strip.cu`` for
+    the contract).
+
+    ``a`` and ``b`` are the uint8 sequence views on one CUDA device.
+    ``elems`` is a host (B, 6) int array of ``ELEM_FIELDS`` per element:
+    rows ``[i0, i0+h)`` of ``a`` (h >= 1) against columns ``[j0, j0+w)`` of
+    ``b`` (w <= width), with InitType border codes 0-2.  Returns the last
+    rows' ``(bus_h, bus_f)``, (B, width) int32; columns past an element's
+    ``w`` hold -INF."""
+    import numpy as np
+
+    dev = a.device
+    if dev.type != "cuda":
+        raise ValueError(f"batched_strip_cuda needs CUDA tensors, got {dev}")
+    for name, x in (("a", a), ("b", b)):
+        if x.device != dev or x.dtype != torch.uint8 or x.dim() != 1 \
+                or not x.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous 1-D uint8 tensor "
+                             f"on {dev}")
+    el = np.ascontiguousarray(elems, dtype=np.int32)
+    if el.ndim != 2 or el.shape[1] != len(ELEM_FIELDS) or el.shape[0] < 1:
+        raise ValueError(f"elems must be (B, {len(ELEM_FIELDS)}), got "
+                         f"{el.shape}")
+    i0, h, j0, w, rc, cc = el.T
+    width = int(width)
+    if width < 1 or (w < 0).any() or (w > width).any():
+        raise ValueError(f"element widths must lie in [0, {width}]")
+    if (h < 1).any() or (i0 < 0).any() or (j0 < 0).any():
+        raise ValueError("element heights must be >= 1, offsets >= 0")
+    if (i0.astype(np.int64) + h > a.numel()).any() \
+            or (j0.astype(np.int64) + w > b.numel()).any():
+        raise ValueError("an element reaches past its sequence view")
+    if not (np.isin(rc, (0, 1, 2)).all() and np.isin(cc, (0, 1, 2)).all()):
+        raise ValueError("border codes must be 0, 1 or 2 (no CUSTOM)")
+    lib = _load("batched_strip")
+    max_t = int(lib.masa_batched_strip_max_threads())
+    need = -(-int(h.max()) // _ALPHA)  # threads the tallest element fills
+    threads = min(max_t, max(32, -(-need // 32) * 32))
+    B = el.shape[0]
+    elems_d = torch.from_numpy(el).to(dev)
+    neg = -999999999
+    bus_h = torch.full((B, width), neg, dtype=torch.int32, device=dev)
+    bus_f = torch.full((B, width), neg, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc_ = lib.masa_batched_strip_launch(
+            ctypes.c_void_p(a.data_ptr()), ctypes.c_void_p(b.data_ptr()),
+            ctypes.c_void_p(elems_d.data_ptr()), B, threads,
+            ctypes.c_void_p(bus_h.data_ptr()),
+            ctypes.c_void_p(bus_f.data_ptr()), width, match, mismatch,
+            gap_open, gap_ext, ctypes.c_void_p(stream))
+    if rc_ != 0:
+        raise RuntimeError(
+            f"batched strip kernel launch failed: CUDA error {rc_}")
+    batched_strip_cuda.launches += 1
+    return bus_h, bus_f
+
+
+batched_strip_cuda.launches = 0

@@ -1,0 +1,250 @@
+"""The strip contract in logical coordinates, its plain PyTorch version,
+and the dispatcher to the Hopper kernel.
+
+Counterpart of ``masa_tpu/ops/wavefront.py``.  A strip is ``h`` rows by
+``nj`` columns of the Gotoh affine-gap DP (SW or NW), with the index
+conventions of the TPU kernel:
+
+  kernel column ``j`` in [0, nj)  <->  DP column ``j+1`` (consumes b[j])
+  kernel row    ``i`` in [0, h)   <->  DP row ``i0+i+1`` (consumes a[i])
+  ``bus_h/bus_f[j]`` = DP (H, F) at (i0, j+1); the corner (i0, 0) is
+                       ``corner``
+  ``col_h/col_e[i]`` = DP (H, E) of the left border at row i0+i+1
+
+and its outputs: the last row's bus, the best ``(score, i, j)`` with ties
+to the smallest i and then the smallest j, the last column's H/E, and the
+H/F of the interior rows ``i`` with ``(i+1) % flush_every == 0``.  The TPU
+layout (lanes, the physical bus offset, padded widths) is not part of it:
+heights, widths and the flush cadence are runtime values.
+
+``strip`` runs the plain version for CPU tensors and the kernel for CUDA
+tensors.  ``strip_plain`` is a row sweep (one cumulative max per row, the
+algorithm of ``masa_tpu/ops/rowsweep.sweep``), so it shares nothing with
+the kernel's anti-diagonal order and serves as its independent check.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from masa_tpu.types import INF, InitType, Recurrence
+from masa_tpu_torch.ops import kernels
+
+NEG = -INF
+
+
+@dataclasses.dataclass(frozen=True)
+class StripConfig:
+    """What a partition's strips are run with.
+
+    ``rows`` is the strip height: the rows one kernel launch covers (the
+    kernel spreads them over the card).  The rest mirrors the scoring
+    fields of ``masa_tpu.ops.wavefront.WavefrontConfig``."""
+
+    rows: int = 512
+    recurrence: Recurrence = Recurrence.SMITH_WATERMAN
+    match: int = 1
+    mismatch: int = -3
+    gap_open: int = 3
+    gap_ext: int = 2
+    track_best: bool = True
+    store_lastcol: bool = False
+
+
+@dataclasses.dataclass
+class StripOut:
+    bus_h: torch.Tensor                  # (nj,) int32, the last row's H
+    bus_f: torch.Tensor                  # (nj,) int32, the last row's F
+    best: torch.Tensor | None = None     # (3,) int64 (score, i, j), local
+    lastcol_h: torch.Tensor | None = None  # (h,) int32
+    lastcol_e: torch.Tensor | None = None
+    rows_h: torch.Tensor | None = None   # (n_int, nj) int32
+    rows_f: torch.Tensor | None = None
+
+
+def merge_best(best_v: torch.Tensor, best_j: torch.Tensor) -> torch.Tensor:
+    """Reduce per-row captures (value, first j reaching it) to (score, i,
+    j): the largest value, the smallest row among those, and that row's
+    j.  Runs on the tensors' device (no host transfer)."""
+    score = best_v.max()
+    rows = torch.arange(best_v.numel(), device=best_v.device)
+    i = torch.where(best_v == score, rows, best_v.numel()).min()
+    return torch.stack([score.long(), i, best_j[i].long()])
+
+
+def strip_out(bus_h, bus_f, best_v, best_j, last_h, last_e, rows_h,
+              rows_f) -> StripOut:
+    """A StripOut from raw outputs (per-row best captures merged)."""
+    best = merge_best(best_v, best_j) if best_v is not None else None
+    return StripOut(bus_h, bus_f, best, last_h, last_e, rows_h, rows_f)
+
+
+def strip_plain(a, b, bus_h, bus_f, col_h, col_e, corner: int, *,
+                match: int, mismatch: int, gap_open: int, gap_ext: int,
+                sw: bool, track_best: bool = False,
+                store_lastcol: bool = False,
+                flush_every: int = 0) -> StripOut:
+    """One strip as a row sweep on any device.  Per row:
+
+        F_j  = max(H_up_j - go, F_up_j) - ge
+        D_j  = max(H_up_{j-1} + sub_j, F_j)          [max 0 for SW]
+        E_j  = max_{k<j}(D_k - go - (j-k) ge, border terms)
+             = cummax(Y)_j - (j+1) ge
+        H_j  = max(D_j, E_j)
+
+    One cumulative max is exact: a horizontal gap reopened from a cell
+    whose H came from E is dominated by extending that gap."""
+    h, nj = a.numel(), b.numel()
+    dev = b.device
+    i64 = torch.int64
+    go, ge = gap_open, gap_ext
+    jge = torch.arange(1, nj, device=dev, dtype=i64) * ge
+    ramp = torch.arange(1, nj + 1, device=dev, dtype=i64) * ge
+    hp, fp = bus_h.to(i64), bus_f.to(i64)
+    ch, ce = col_h.tolist(), col_e.tolist()
+    best_v = torch.empty(h, dtype=i64, device=dev) if track_best else None
+    best_j = torch.empty(h, dtype=i64, device=dev) if track_best else None
+    last_h = torch.empty(h, dtype=i64, device=dev) if store_lastcol else None
+    last_e = torch.empty(h, dtype=i64, device=dev) if store_lastcol else None
+    rows_h, rows_f = [], []
+    up_left = int(corner)  # H(row above, border column)
+    for i in range(h):
+        f = torch.maximum(hp - go, fp) - ge
+        diag = torch.empty_like(hp)
+        diag[0] = up_left
+        diag[1:] = hp[:-1]
+        d = torch.maximum(diag + torch.where(b == a[i], match, mismatch), f)
+        if sw:
+            d.clamp_(min=0)
+        y = torch.empty_like(d)
+        y[0] = max(ch[i] - go, ce[i])
+        y[1:] = d[:-1] - go + jge
+        e = torch.cummax(y, 0).values - ramp
+        hc = torch.maximum(d, e)
+        if track_best:
+            k = torch.argmax(hc)  # first occurrence of the row's max
+            best_v[i] = hc[k]
+            best_j[i] = k
+        if store_lastcol:
+            last_h[i] = hc[-1]
+            last_e[i] = e[-1]
+        if flush_every and (i + 1) % flush_every == 0 and i < h - 1:
+            rows_h.append(hc)
+            rows_f.append(f)
+        hp, fp, up_left = hc, f, ch[i]
+
+    def i32(x):
+        return None if x is None else x.to(torch.int32)
+
+    rh = torch.stack(rows_h).to(torch.int32) if rows_h else None
+    rf = torch.stack(rows_f).to(torch.int32) if rows_f else None
+    return strip_out(i32(hp), i32(fp), best_v, best_j, i32(last_h),
+                     i32(last_e), rh, rf)
+
+
+def strip(a, b, bus_h, bus_f, col_h, col_e, corner: int, *, match: int,
+          mismatch: int, gap_open: int, gap_ext: int, sw: bool,
+          track_best: bool = False, store_lastcol: bool = False,
+          flush_every: int = 0) -> StripOut:
+    """One strip: the plain version for CPU tensors, the Hopper kernel for
+    CUDA tensors (which raises if it cannot build or launch)."""
+    kw = dict(match=match, mismatch=mismatch, gap_open=gap_open,
+              gap_ext=gap_ext, sw=sw, track_best=track_best,
+              store_lastcol=store_lastcol, flush_every=flush_every)
+    if b.device.type == "cpu":
+        return strip_plain(a, b, bus_h, bus_f, col_h, col_e, corner, **kw)
+    if b.device.type == "cuda":
+        return strip_out(*kernels.strip_cuda(a, b, bus_h, bus_f, col_h,
+                                             col_e, corner, **kw))
+    raise ValueError(f"no strip implementation for device {b.device}")
+
+
+def border_h(code: int, k: torch.Tensor, gap_open: int,
+             gap_ext: int) -> torch.Tensor:
+    """Border H at positions ``k`` (``models.scoring.border_cells``
+    semantics; port of ``border_h_traced``): WITH_ZEROES 0, WITH_GAPS 0 at
+    k = 0 and -open - k*ext after, WITH_GAPS_OPENED -k*ext."""
+    if code not in (InitType.WITH_ZEROES, InitType.WITH_GAPS,
+                    InitType.WITH_GAPS_OPENED):
+        raise ValueError(f"cannot synthesize a border for {code!r}")
+    k = k.to(torch.int32)
+    return border_h_codes(torch.full_like(k, int(code)), k, gap_open,
+                          gap_ext).to(torch.int32)
+
+
+def init_bus(code: int, nj: int, gap_open: int, gap_ext: int,
+             device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The first row's (H, F) bus for DP columns 1..nj, made on the device
+    (port of ``init_bus_synth``)."""
+    j = torch.arange(1, nj + 1, device=device, dtype=torch.int32)
+    return (border_h(code, j, gap_open, gap_ext),
+            torch.full((nj,), NEG, dtype=torch.int32, device=device))
+
+
+def border_h_codes(codes: torch.Tensor, k: torch.Tensor, gap_open: int,
+                   gap_ext: int) -> torch.Tensor:
+    """``border_h`` with a border code per element: ``codes`` (B,) int64
+    against positions ``k`` broadcastable to (B, ...)."""
+    while codes.dim() < k.dim():
+        codes = codes.unsqueeze(-1)
+    gaps = torch.where(k == 0, 0, -gap_open - k * gap_ext)
+    return torch.where(codes == InitType.WITH_ZEROES, torch.zeros_like(k),
+                       torch.where(codes == InitType.WITH_GAPS, gaps,
+                                   -k * gap_ext))
+
+
+def batched_strip_plain(a, b, elems, width: int, *, match: int,
+                        mismatch: int, gap_open: int,
+                        gap_ext: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Many score-only NW strips as one row sweep over a (B, width) batch
+    (the algorithm of ``masa_tpu/ops/rowsweep.batched_sweep_engine``): the
+    contract of ``kernels.batched_strip_cuda`` on any device.  Each row
+    advances every element at once; an element stops changing after its
+    own ``h`` rows.  Columns past an element's ``w`` see clamped
+    characters (nothing flows leftward) and end as -INF."""
+    dev = a.device
+    i64 = torch.int64
+    go, ge = gap_open, gap_ext
+    el = torch.as_tensor(elems, dtype=i64).to(dev)
+    i0, h, j0, w, rc, cc = el.unbind(1)
+    cols = torch.arange(width, device=dev, dtype=i64)
+    bch = b[(j0[:, None] + cols).clamp(max=b.numel() - 1)]
+    jge = cols[1:] * ge
+    ramp = (cols + 1) * ge
+    hp = border_h_codes(rc, (cols + 1).expand(len(el), -1), go, ge)
+    fp = torch.full_like(hp, NEG)
+    for r in range(int(h.max()) if len(el) else 0):
+        act = (r < h)[:, None]
+        ach = a[(i0 + r).clamp(max=a.numel() - 1)]
+        kr = torch.full_like(cc, r)
+        up_left = border_h_codes(cc, kr, go, ge)  # H(row above, border)
+        left = border_h_codes(cc, kr + 1, go, ge)  # this row's border H
+        f = torch.maximum(hp - go, fp) - ge
+        diag = torch.cat([up_left[:, None], hp[:, :-1]], 1)
+        d = torch.maximum(
+            diag + torch.where(bch == ach[:, None], match, mismatch), f)
+        y = torch.cat([(left - go).clamp(min=NEG)[:, None],
+                       d[:, :-1] - go + jge], 1)
+        e = torch.cummax(y, 1).values - ramp
+        hp = torch.where(act, torch.maximum(d, e), hp)
+        fp = torch.where(act, f, fp)
+    keep = cols < w[:, None]
+    return (torch.where(keep, hp, NEG).to(torch.int32),
+            torch.where(keep, fp, NEG).to(torch.int32))
+
+
+def batched_strip(a, b, elems, width: int, *, match: int, mismatch: int,
+                  gap_open: int, gap_ext: int):
+    """Many score-only NW strips: the plain version for CPU tensors, the
+    Hopper batched kernel for CUDA tensors (which raises if it cannot
+    build or launch)."""
+    kw = dict(match=match, mismatch=mismatch, gap_open=gap_open,
+              gap_ext=gap_ext)
+    if a.device.type == "cpu":
+        return batched_strip_plain(a, b, elems, width, **kw)
+    if a.device.type == "cuda":
+        return kernels.batched_strip_cuda(a, b, elems, width, **kw)
+    raise ValueError(f"no batched strip implementation for device "
+                     f"{a.device}")

@@ -1,0 +1,190 @@
+"""The Hopper kernels (the strip kernel and the batched strip kernel)
+against their plain PyTorch versions, on the card.
+
+These need a CUDA GPU and nvcc and skip elsewhere.  The repo's conftest
+imports JAX, which the GPU machine lacks, so run them there with:
+
+    python -m pytest --noconftest -p no:cacheprovider -m cuda \
+        tests/test_torch_cuda.py
+
+Tolerance: exact equality (integer DP)."""
+
+import numpy as np
+import pytest
+import torch
+
+from masa_tpu.types import INF, InitType, ScoreParams
+from masa_tpu_torch.ops import batched_mm, kernels
+from masa_tpu_torch.ops import wavefront as wf
+
+pytestmark = pytest.mark.cuda
+NEG = -INF
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the Hopper kernels have no CPU "
+                    "mode")
+    return torch.device("cuda")
+
+
+def inputs(seed, h, nj, dev, border=InitType.WITH_ZEROES, params=None):
+    params = params or ScoreParams()
+    rng = np.random.default_rng(seed)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    a = rng.choice(bases, h).astype(np.uint8)
+    b = np.resize(a, nj).copy()
+    flip = rng.random(nj) < 0.25
+    b[flip] = rng.choice(bases, int(flip.sum()))
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)  # noqa
+    bus_h, bus_f = wf.init_bus(border, nj, params.gap_open, params.gap_ext,
+                               dev)
+    k = torch.arange(0, h + 1, device=dev)
+    col = wf.border_h(border, k, params.gap_open, params.gap_ext)
+    col_e = torch.full((h,), NEG, dtype=torch.int32, device=dev)
+    return (t(a), t(b), bus_h, bus_f, col[1:].contiguous(), col_e,
+            int(col[0]))
+
+
+def assert_equal(k, p):
+    for f in ("bus_h", "bus_f", "best", "lastcol_h", "lastcol_e",
+              "rows_h", "rows_f"):
+        x, y = getattr(k, f), getattr(p, f)
+        assert (x is None) == (y is None), f
+        if x is not None:
+            assert torch.equal(x.long(), y.long()), f
+
+
+@pytest.mark.parametrize("h,nj,flush", [
+    (1, 1, 0), (77, 333, 10), (2048, 500, 512), (4097, 129, 1000),
+    (6000, 64, 0)])
+@pytest.mark.parametrize("border", [InitType.WITH_ZEROES, InitType.WITH_GAPS,
+                                    InitType.WITH_GAPS_OPENED],
+                         ids=lambda b: b.name)
+@pytest.mark.parametrize("sw", [True, False], ids=["SW", "NW"])
+def test_kernel_matches_plain(cuda, sw, border, h, nj, flush):
+    args = inputs(h + nj, h, nj, cuda, border)
+    kw = dict(match=1, mismatch=-3, gap_open=3, gap_ext=2, sw=sw,
+              track_best=True, store_lastcol=True, flush_every=flush)
+    before = kernels.strip_cuda.launches
+    got = wf.strip(*args, **kw)
+    assert kernels.strip_cuda.launches == before + 1
+    assert_equal(got, wf.strip_plain(*args, **kw))
+
+
+def test_persistent_blocks_reuse(cuda):
+    """More sub-strips than blocks: each block takes several in turn."""
+    rows = kernels.block_rows()
+    args = inputs(5, 4 * rows + 3, 200, cuda)
+    kw = dict(match=1, mismatch=-3, gap_open=3, gap_ext=2, sw=True,
+              track_best=True, store_lastcol=True, flush_every=333)
+    got = wf.strip_out(*kernels.strip_cuda(*args, **kw, max_ctas=1))
+    assert_equal(got, wf.strip_plain(*args, **kw))
+
+
+def test_wrapper_rejects_bad_inputs(cuda):
+    a, b, bh, bf, ch, ce, corner = inputs(1, 10, 10, cuda)
+    kw = dict(match=1, mismatch=-3, gap_open=3, gap_ext=2, sw=True)
+    with pytest.raises(ValueError, match="int32"):
+        kernels.strip_cuda(a, b, bh.long(), bf, ch, ce, corner, **kw)
+    with pytest.raises(ValueError, match="on cpu"):
+        kernels.strip_cuda(a, b, bh, bf, ch.cpu(), ce, corner, **kw)
+
+
+def test_multi_wave_sampled_intervals(cuda):
+    """More sub-strips than the card holds at once (no block cap), so
+    blocks take sub-strips in a second wave: every flushed interval that a
+    sampled sub-strip owns, recomputed by the plain version from the
+    kernel's row above it, equals the kernel's rows, bests and last
+    column there."""
+    rows = kernels.block_rows()
+    n_sub = kernels.resident_blocks() + 3
+    h, nj = n_sub * rows + 5, 300
+    args = inputs(9, h, nj, cuda)
+    a, b, bus_h, bus_f, col_h, col_e, corner = args
+    kw = dict(match=1, mismatch=-3, gap_open=3, gap_ext=2, sw=True)
+    out = kernels.strip_cuda(*args, **kw, track_best=True,
+                             store_lastcol=True, flush_every=rows)
+    _, _, best_v, best_j, last_h, last_e, rows_h, rows_f = out
+    for g in (0, n_sub - 4, n_sub - 3, n_sub - 2, n_sub - 1, n_sub):
+        lo, hi = g * rows, min((g + 1) * rows, h)
+        above = ((bus_h, bus_f, corner) if g == 0 else
+                 (rows_h[g - 1], rows_f[g - 1], int(col_h[lo - 1])))
+        ref = wf.strip_plain(a[lo:hi], b, above[0], above[1], col_h[lo:hi],
+                             col_e[lo:hi], above[2], **kw, track_best=True,
+                             store_lastcol=True)
+        got_bus = ((rows_h[g], rows_f[g]) if g < n_sub else out[:2])
+        assert torch.equal(got_bus[0], ref.bus_h), g
+        assert torch.equal(got_bus[1], ref.bus_f), g
+        assert torch.equal(wf.merge_best(best_v[lo:hi], best_j[lo:hi]),
+                           ref.best), g
+        assert torch.equal(last_h[lo:hi], ref.lastcol_h), g
+        assert torch.equal(last_e[lo:hi], ref.lastcol_e), g
+
+
+def batched_inputs(seed, B, h_max, w_max, dev, n=20000):
+    rng = np.random.default_rng(seed)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    s0 = rng.choice(bases, n).astype(np.uint8)
+    s1 = s0.copy()
+    flip = rng.random(n) < 0.1
+    s1[flip] = rng.choice(bases, int(flip.sum()))
+    h = rng.integers(1, h_max + 1, B)
+    w = rng.integers(0, w_max + 1, B)
+    i0 = rng.integers(0, n - h)
+    j0 = np.clip(i0 + rng.integers(-50, 50, B), 0, n - w)
+    elems = np.stack([i0, h, j0, w, rng.integers(0, 3, B),
+                      rng.integers(0, 3, B)], 1).astype(np.int32)
+    t = lambda x: torch.from_numpy(x).to(dev)  # noqa: E731
+    return t(s0), t(s1), elems
+
+
+@pytest.mark.parametrize("seed,B,h_max,w_max", [
+    (1, 1, 1, 1), (2, 300, 70, 130), (3, 64, 600, 40), (4, 5, 5000, 300),
+    (5, 2000, 16, 2)])
+def test_batched_kernel_matches_plain(cuda, seed, B, h_max, w_max):
+    a, b, elems = batched_inputs(seed, B, h_max, w_max, cuda)
+    kw = dict(match=1, mismatch=-3, gap_open=3, gap_ext=2)
+    before = kernels.batched_strip_cuda.launches
+    got = wf.batched_strip(a, b, elems, max(w_max, 1), **kw)
+    assert kernels.batched_strip_cuda.launches == before + 1
+    want = wf.batched_strip_plain(a, b, elems, max(w_max, 1), **kw)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_batched_wrapper_rejects_bad_inputs(cuda):
+    a, b, elems = batched_inputs(1, 4, 10, 10, cuda)
+    kw = dict(match=1, mismatch=-3, gap_open=3, gap_ext=2)
+    bad = elems.copy()
+    bad[0, 1] = 0
+    with pytest.raises(ValueError, match="heights"):
+        kernels.batched_strip_cuda(a, b, bad, 10, **kw)
+    with pytest.raises(ValueError, match="widths"):
+        kernels.batched_strip_cuda(a, b, elems, 1, **kw)
+    bad = elems.copy()
+    bad[0, 4] = 3
+    with pytest.raises(ValueError, match="CUSTOM"):
+        kernels.batched_strip_cuda(a, b, bad, 10, **kw)
+    with pytest.raises(ValueError, match="uint8"):
+        kernels.batched_strip_cuda(a.long(), b, elems, 10, **kw)
+
+
+def test_batched_stage4_matches_cpu(cuda):
+    """The card's stage 4 (kernel) and the CPU's (plain) give the same
+    crosspoints on a homologous pair with gaps."""
+    from masa_tpu.ops import oracle
+    from masa_tpu.types import Crosspoint, Recurrence
+
+    a, b, _ = batched_inputs(6, 1, 1, 1, "cpu", n=3000)
+    s0, s1 = a.numpy(), np.concatenate([b.numpy()[:1000],
+                                        b.numpy()[1040:]])
+    P = ScoreParams()
+    total = int(oracle.dp_rows(s0, s1, P, Recurrence.NEEDLEMAN_WUNSCH,
+                               InitType.WITH_GAPS, InitType.WITH_GAPS
+                               ).last_h[-1])
+    cps = [Crosspoint(0, 0, 0), Crosspoint(len(s0), len(s1), total)]
+    got = batched_mm.reduce_partitions_batched(s0, s1, cps, P, 16,
+                                               device=cuda)
+    assert got == batched_mm.reduce_partitions_batched(s0, s1, cps, P, 16,
+                                                       device="cpu")

@@ -1,0 +1,101 @@
+"""The port never imports JAX: a full alignment through the strip engine,
+the batched stage-4 engine and the stage-6 re-score run with ``import
+jax`` made to fail, and chip_smoke.py refuses to run without a CUDA
+device."""
+
+import json
+import os
+import shutil
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+BLOCKED_RUN = r"""
+import sys
+
+class NoJax:
+    def find_spec(self, name, path=None, target=None):
+        if name == "jax" or name.startswith(("jax.", "jaxlib")):
+            raise ImportError(f"{name} is blocked in this test")
+
+sys.meta_path.insert(0, NoJax())
+
+import numpy as np
+
+import masa_tpu_torch
+import masa_tpu_torch.convert
+from masa_tpu.ops import oracle
+
+rng = np.random.default_rng(3)
+bases = np.frombuffer(b"ACGT", np.uint8)
+s0 = rng.choice(bases, 600).astype(np.uint8)
+s1 = s0.copy()
+idx = rng.random(600) < 0.1
+s1[idx] = rng.choice(bases, int(idx.sum())).astype(np.uint8)
+# backend "kernel": stage 1 runs the strip engine and dispatches its
+# special row (600 > 512) through the manager's border synthesis
+aln = masa_tpu_torch.align(s0, s1, device="cpu", backend="kernel")
+ref = oracle.dp_rows(s0, s1)
+assert aln.raw_score == ref.best, (aln.raw_score, ref.best)
+assert list(aln.end) == [ref.best_i, ref.best_j]
+# the GPU's stage 4 (batched strips; plain on the CPU) and stage 6
+from masa_tpu.types import Crosspoint
+from masa_tpu_torch.ops import batched_mm
+from masa_tpu_torch.stages import stage6
+cps = [Crosspoint(0, 0, 0), Crosspoint(300, 300, int(
+    oracle.dp_rows(s0[:300], s1[:300], masa_tpu_torch.ScoreParams(),
+                   masa_tpu_torch.Recurrence.NEEDLEMAN_WUNSCH,
+                   masa_tpu_torch.InitType.WITH_GAPS,
+                   masa_tpu_torch.InitType.WITH_GAPS).last_h[-1]))]
+out = batched_mm.reduce_partitions_batched(
+    s0, s1, cps, masa_tpu_torch.ScoreParams(), 16, device="cpu")
+assert out[0] == cps[0] and out[-1] == cps[-1] and len(out) > 2
+assert stage6.recheck(aln, s0, s1).score == aln.raw_score
+assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules)
+print("ok", aln.raw_score)
+"""
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    return env
+
+
+def test_alignment_runs_with_jax_blocked():
+    r = subprocess.run([sys.executable, "-c", BLOCKED_RUN], cwd=REPO,
+                       env=_env(), capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.startswith("ok ")
+
+
+def _no_result(stdout: str) -> bool:
+    for line in stdout.splitlines():
+        try:
+            if json.loads(line).get("ok"):
+                return False
+        except (ValueError, AttributeError):
+            continue
+    return True
+
+
+def test_chip_smoke_needs_a_cuda_device(tmp_path):
+    """With no CUDA device visible the script exits non-zero, says why
+    and prints no result; so does a lone copy of it outside the repo."""
+    env = _env()
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    r = subprocess.run([sys.executable, os.path.join(REPO, "chip_smoke.py")],
+                       cwd=REPO, env=env, capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode != 0
+    assert "no CUDA device" in r.stderr
+    assert _no_result(r.stdout)
+    lone = tmp_path / "chip_smoke.py"
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), lone)
+    bare = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, str(lone)], cwd=tmp_path, env=bare,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode != 0
+    assert _no_result(r.stdout)
