@@ -4,8 +4,9 @@
 Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases (any failure raises and the run exits non-zero):
-  1. the card's name and power limit; build csrc/strip.cu and
-     csrc/batched_strip.cu with nvcc;
+  1. the card's name and power limit; build csrc/strip.cu,
+     csrc/batched_strip.cu and csrc/roofline.cu with nvcc, one process
+     each, all started together;
   2. each kernel against its plain PyTorch version on the card, exact
      integer equality.  The strip kernel: SW/NW x four border types x full
      and partial heights x flush on/off x best/last-column tracking x odd
@@ -13,25 +14,42 @@ Phases (any failure raises and the run exits non-zero):
      than the card holds at once (sampled intervals); then one main-path
      shape (8192 rows x 2^20 columns), timed.  The batched strip kernel:
      batches of mixed heights, widths and border codes, tall elements
-     that chain in one block, zero widths;
+     that chain in one block, zero widths.  The equal-shape batched strip
+     kernel: CUSTOM borders, odd widths, 1 to 3000 elements, tall
+     elements that chain sub-strips; then timed at 8192 x 64 x 128.  The
+     roofline bodies at a few iterations;
   3. the golden real pairs through masa_tpu_torch.align(device="cuda"):
      real1 must score 11367 ending at (16384, 15805), real2 32466;
   4. the bench.py 1M x 1M homologous pair through the six pipeline stages
      (pipeline.align_pair, then the stage-6 re-score): score 796634, stage 5
      verified, the re-score equal, strip-kernel launches in stages 1, 2 and
-     3 and batched-kernel launches in stage 4;
-  5. the batched kernel at the main path's own shape: stage 4's first
-     level of that run, rebuilt from stage 3's crosspoints, timed against
-     its plain version.
+     3 (stage 4 stops at isqrt(max_cells_stage5) and may find nothing to
+     split after stage 3);
+  5. the CLI on the same pair, written as FASTA files: `--stage-1`, then
+     the full run resuming it (stage 1 reported as already executed, score
+     796634, stage 5 verified), strip launches in the first call and
+     batched launches in the second; per-stage times and pruned cells;
+     then the batched kernel at that run's own shape: stage 4's first
+     level, rebuilt from its stage-3 crosspoints, timed against its plain
+     version;
+  6. `python -m masa_tpu_torch --test --device cuda` as a subprocess;
+  7. the roofline tool (`masa_tpu_torch.tools.roofline.measure`), printed
+     as its JSON line beside the strip kernel's rate on the stage-1
+     shape.
 The last two lines are a JSON summary of the kernels and the contract
 line {"ok": true, "device": {...}}.  Without a CUDA device the script
 exits non-zero and prints no result.
 """
 
+import concurrent.futures
+import contextlib
+import io
 import json
 import os
+import re
 import subprocess
 import sys
+import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -40,6 +58,10 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
               "masa_tpu/ops/wavefront.py:518"),  # strip_pallas
     "batched_strip": ("masa_tpu_torch/csrc/batched_strip.cu",
                       "masa_tpu/ops/wavefront.py:1427"),  # ..._pallas_dyn
+    "batched_strip_fixed": ("masa_tpu_torch/csrc/batched_strip.cu",
+                            "masa_tpu/ops/wavefront.py:1289"),  # ..._pallas
+    "roofline": ("masa_tpu_torch/csrc/roofline.cu",
+                 "tools/roofline.py:86"),  # bench_kernel.make_call
 }
 M_1M = 1 << 20
 SCORE_1M = 796634  # masa_tpu's full six-stage score on this pair
@@ -59,13 +81,18 @@ def card_line() -> str:
 
 
 def build_kernels():
+    """Every kernel source, one nvcc each, all started together."""
     from masa_tpu_torch.ops import kernels
 
-    for name in KERNELS:
+    def build(name):
         t0 = time.time()
-        path = kernels.build(name)
-        log(f"build: {os.path.relpath(path, REPO)} in "
-            f"{time.time() - t0:.1f} s")
+        return kernels.build(name), time.time() - t0
+
+    with concurrent.futures.ThreadPoolExecutor(len(kernels.SOURCES)) as ex:
+        built = {name: ex.submit(build, name) for name in kernels.SOURCES}
+    for name, fut in built.items():
+        path, secs = fut.result()
+        log(f"build: {os.path.relpath(path, REPO)} in {secs:.1f} s")
         for line in kernels.build_log.get(name, "").splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"  ptxas: {line.strip()}")
@@ -274,6 +301,115 @@ def batched_diff(got, want, what):
     return worst
 
 
+def fixed_inputs(rng, B, h, nj, dev):
+    """Equal-shape batch inputs with CUSTOM borders: homologous
+    characters, random border and bus values, -INF in a fifth of the gap
+    cells, random corners."""
+    import numpy as np
+    import torch
+
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    a = rng.choice(bases, (B, h))
+    b = a[:, np.arange(nj) % h].copy()
+    flip = rng.random((B, nj)) < 0.25
+    b[flip] = rng.choice(bases, int(flip.sum()))
+
+    def t(x, dt):
+        return torch.from_numpy(np.ascontiguousarray(x).astype(dt)).to(dev)
+
+    def gaps(shape):
+        return np.where(rng.random(shape) < 0.2, NEG,
+                        rng.integers(-80, 20, shape))
+
+    return (t(a, np.uint8), t(b, np.uint8),
+            t(rng.integers(-60, 40, (B, h)), np.int32),
+            t(gaps((B, h)), np.int32),
+            t(rng.integers(-60, 40, (B, nj)), np.int32),
+            t(gaps((B, nj)), np.int32),
+            t(rng.integers(-60, 40, B), np.int32))
+
+
+def fixed_matrix(dev):
+    """Phase 2d: the equal-shape batched kernel equals its plain version:
+    CUSTOM borders, odd widths, 1 to 3000 elements, elements taller than
+    one block (2048 rows) that chain sub-strips."""
+    import numpy as np
+
+    from masa_tpu_torch.ops import wavefront as wf
+
+    rng = np.random.default_rng(17)
+    cases = ((1, 1, 1), (1, 300, 256), (3, 300, 255), (64, 64, 129),
+             (3000, 8, 33), (5, 2049, 77), (2, 5000, 300))
+    worst = 0
+    t0 = time.time()
+    for k, (B, h, nj) in enumerate(cases):
+        args = fixed_inputs(rng, B, h, nj, dev)
+        kw = (dict(match=1, mismatch=-3, gap_open=3, gap_ext=2) if k % 2
+              else dict(match=2, mismatch=-1, gap_open=2, gap_ext=1))
+        worst = max(worst, batched_diff(
+            wf.batched_strip_fixed(*args, **kw),
+            wf.batched_strip_fixed_plain(*args, **kw),
+            f"fixed B={B} h={h} nj={nj}"))
+    log(f"equal-shape batched kernel vs plain: {len(cases)} cases equal "
+        f"(max |diff| {worst}, tolerance 0) in {time.time() - t0:.1f} s")
+    return worst
+
+
+def fixed_main(dev):
+    """Phase 2e: the equal-shape batched strip through its entry point
+    (``wavefront.batched_strip_fixed``) at 8192 elements of 64 x 128,
+    counted and timed, then its plain version on the same inputs."""
+    import numpy as np
+
+    from masa_tpu_torch.ops import kernels
+    from masa_tpu_torch.ops import wavefront as wf
+
+    B, h, nj = 8192, 64, 128
+    args = fixed_inputs(np.random.default_rng(19), B, h, nj, dev)
+    kw = dict(match=1, mismatch=-3, gap_open=3, gap_ext=2)
+    timed(wf.batched_strip_fixed, *args, **kw)  # warm
+    kernels.batched_strip_fixed_cuda.launches = 0
+    got, ms = timed(wf.batched_strip_fixed, *args, **kw)
+    launches = kernels.batched_strip_fixed_cuda.launches
+    if launches <= 0:
+        raise AssertionError("batched_strip_fixed launched no kernel")
+    want, plain_ms = timed(wf.batched_strip_fixed_plain, *args, **kw)
+    err = batched_diff(got, want, f"fixed B={B} h={h} nj={nj}")
+    cells = B * h * nj
+    log(f"equal-shape batched strip {B} x {h} x {nj} ({cells} cells): "
+        f"kernel {ms:.3f} ms ({cells / ms / 1e6:.2f} GCUPS), plain "
+        f"{plain_ms:.3f} ms, equal")
+    return launches, err, ms, plain_ms
+
+
+def roofline_matrix(dev):
+    """Phase 2f: each roofline body's kernel equals its plain version on
+    the TPU tool's inputs, at a few iterations; the mix body timed
+    against its plain version at 256 iterations."""
+    import torch
+
+    from masa_tpu_torch.tools import roofline as rl
+
+    worst = 0
+    for body in rl.BODIES:
+        xs = [torch.from_numpy(x).to(dev) for x in rl.inputs(body)]
+        for iters in (0, 1, 61):
+            d = int((rl.run_cuda(body, xs, iters).long()
+                     - rl.run_plain(body, xs, iters).long()).abs().max())
+            worst = max(worst, d)
+            if d:
+                raise AssertionError(f"roofline {body} x{iters}: differs "
+                                     f"(max |diff| {d})")
+    xs = [torch.from_numpy(x).to(dev) for x in rl.inputs("mix")]
+    timed(rl.run_cuda, "mix", xs, 256)  # warm
+    _, ms = timed(rl.run_cuda, "mix", xs, 256)
+    _, plain_ms = timed(rl.run_plain, "mix", xs, 256)
+    log(f"roofline bodies vs plain: {len(rl.BODIES)} bodies equal at 0, 1 "
+        f"and 61 iterations; mix x256 on {xs[0].numel()} lanes: kernel "
+        f"{ms:.3f} ms, plain {plain_ms:.3f} ms")
+    return worst, ms, plain_ms
+
+
 def timed(fn, *args, **kw):
     """fn's result and its time on the card in ms (CUDA events)."""
     import torch
@@ -313,19 +449,23 @@ def main_shape(dev):
 
 
 def stage4_level(s0, s1, cps, dev):
-    """Phase 5: the forward halves of stage 4's first level on the 1M pair
-    (rebuilt from stage 3's crosspoints, as batched_mm cuts them), kernel
-    and plain timed on the same inputs."""
+    """The forward halves of stage 4's first level on the 1M pair, rebuilt
+    from the CLI's stage-3 crosspoints at stage 4's stop as batched_mm
+    cuts them, kernel and plain timed on the same inputs."""
+    import math
+
     import numpy as np
     import torch
 
     from masa_tpu_torch import ScoreParams
     from masa_tpu_torch.ops import batched_mm
     from masa_tpu_torch.ops import wavefront as wf
+    from masa_tpu_torch.stages import pipeline
 
     params = ScoreParams()
+    mps = max(16, math.isqrt(pipeline.PipelineConfig().max_cells_stage5))
     pending = [p for p in zip(cps, cps[1:])
-               if not batched_mm.is_done(*p, 16)]
+               if not batched_mm.is_done(*p, mps)]
     _, fwd, _ = batched_mm.level_halves(pending, len(s0), len(s1))
     elems = batched_mm.elems_of(fwd)
     width = max(1, int(elems[:, 3].max()))
@@ -399,15 +539,17 @@ def bench_pair():
 
 def full_run(s0, s1):
     """Phase 4: the six stages on the 1M pair through align_pair, timed
-    and counted per stage.  Returns the launches of each kernel in the run
-    and stage 3's crosspoints."""
+    and counted per stage.  Stage 3 densifies to max_cells_stage5 and
+    stage 4 stops at isqrt(max_cells_stage5), as masa_tpu's does on its
+    device, so stage 4 may find nothing left to split here; the CLI run
+    (phase 5) is where stage 4 splits whole stage-2 bands."""
     from masa_tpu_torch.ops import kernels
     from masa_tpu_torch.stages import pipeline, stage6
 
     counters = {"strip": kernels.strip_cuda,
                 "batched_strip": kernels.batched_strip_cuda}
     pcfg = pipeline.PipelineConfig(device="cuda")
-    secs, launches, cps3, ncps = {}, {}, [], {}
+    secs, launches, ncps = {}, {}, {}
     seen = {k: 0 for k in counters}
 
     def on_stage(name, seconds, out):
@@ -417,15 +559,12 @@ def full_run(s0, s1):
         seen.update({k: c.launches for k, c in counters.items()})
         if isinstance(out, list):
             ncps[name] = len(out)
-        if name == "stage3":
-            cps3.extend(out)
         log(f"  {name}: {seconds:.2f} s, launches "
             + ", ".join(f"{k} {v}" for k, v in launches[name].items()))
 
     for c in counters.values():
         c.launches = 0
     aln = pipeline.align_pair(s0, s1, pcfg, on_stage=on_stage)
-    total_launches = {k: c.launches for k, c in counters.items()}
     t0 = time.time()
     rc = stage6.recheck(aln, s0, s1, pcfg.params)
     secs["stage6"] = time.time() - t0
@@ -442,12 +581,125 @@ def full_run(s0, s1):
     for s in ("stage1", "stage2", "stage3"):
         if launches[s]["strip"] <= 0:
             raise AssertionError(f"{s} launched no strip kernel")
-    if launches["stage4"]["batched_strip"] <= 0:
-        raise AssertionError("stage4 launched no batched strip kernel")
-    for k, n in total_launches.items():
-        if n <= 0:
-            raise AssertionError(f"the main path never launched {k}")
-    return total_launches, cps3
+
+
+def write_fasta(path, desc, seq):
+    with open(path, "wb") as fh:
+        fh.write(b">" + desc.encode() + b"\n")
+        for k in range(0, len(seq), 70):
+            fh.write(seq[k:k + 70].tobytes() + b"\n")
+
+
+def cli_run(s0, s1):
+    """Phase 5: the pair through the CLI in-process: --stage-1, then the
+    full run resuming it.  Returns the strip launches of the first call,
+    the batched launches of the second, and its stage-3 crosspoints (the
+    stage-2 bands: stage 3 passes them through on the card)."""
+    from masa_tpu_torch import cli
+    from masa_tpu_torch.core.job import CrosspointsFile
+    from masa_tpu_torch.ops import kernels
+
+    counters = {"strip": kernels.strip_cuda,
+                "batched_strip": kernels.batched_strip_cuda}
+    with tempfile.TemporaryDirectory() as tmp:
+        fa, fb = os.path.join(tmp, "a.fa"), os.path.join(tmp, "b.fa")
+        write_fasta(fa, "bench s0", s0)
+        write_fasta(fb, "bench s1", s1)
+        # every special row on disk (a crash-safe run), 1 GiB of them
+        argv = [fa, fb, "--work-dir", os.path.join(tmp, "w"),
+                "--ram-size", "0", "--disk-size", "1G"]
+        outs, launches, secs = [], [], []
+        for extra in (["--stage-1"], []):
+            for c in counters.values():
+                c.launches = 0
+            buf = io.StringIO()
+            t0 = time.time()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(argv + extra)
+            secs.append(time.time() - t0)
+            out = buf.getvalue()
+            for line in out.splitlines():
+                if not line.startswith("stage1: ... flushed"):
+                    log(f"  cli> {line}")
+            if rc != 0:
+                raise AssertionError(f"the CLI exited {rc}")
+            outs.append(out)
+            launches.append({k: c.launches for k, c in counters.items()})
+        with open(os.path.join(tmp, "w", "statistics_01.00")) as fh:
+            pruned = re.search(r"pruned_cells: (\d+)", fh.read()).group(1)
+        cps3 = CrosspointsFile(os.path.join(tmp, "w", "crosspoints",
+                                            "crosspoint_03.00")).load()
+    first, second = outs
+    if f"best score: {SCORE_1M} at" not in first:
+        raise AssertionError(f"the CLI's stage 1 did not find {SCORE_1M}")
+    for want in ("stage1: already executed (resume)",
+                 f"stage5: score={SCORE_1M} verified",
+                 f"alignment score: {SCORE_1M}  (matches="):
+        if want not in second:
+            raise AssertionError(f"the CLI's second run lacks {want!r}")
+    stage_s = {f"stage{k}": float(v) for k, v in re.findall(
+        r"^stage(\d): .* in ([\d.]+)s", first + second, re.M)}
+    log(f"CLI 1M pair: --stage-1 call {secs[0]:.2f} s, resumed full call "
+        f"{secs[1]:.2f} s; per stage " + json.dumps(stage_s)
+        + f"; pruned_cells {pruned}; strip launches {launches[0]['strip']}"
+        f" (first call), batched launches {launches[1]['batched_strip']}"
+        f" (second call)")
+    if launches[0]["strip"] <= 0:
+        raise AssertionError("the CLI's stage 1 launched no strip kernel")
+    if launches[1]["batched_strip"] <= 0:
+        raise AssertionError("the CLI's traceback launched no batched "
+                             "strip kernel")
+    return {"strip": launches[0]["strip"],
+            "batched_strip": launches[1]["batched_strip"]}, cps3
+
+
+def module_entry():
+    """Phase 6: the package's module entry as a user runs it."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.time()
+    r = subprocess.run([sys.executable, "-m", "masa_tpu_torch", "--test",
+                        "--device", "cuda"], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=600)
+    for line in r.stdout.splitlines():
+        log(f"  --test> {line}")
+    if r.returncode != 0 or "self-test: PASS" not in r.stdout:
+        raise AssertionError(f"python -m masa_tpu_torch --test exited "
+                             f"{r.returncode}: {r.stderr[-2000:]}")
+    log(f"module entry --test: exit 0 in {time.time() - t0:.1f} s")
+
+
+def roofline_phase(dev):
+    """Phase 7: the roofline tool's measurement, and the strip kernel's
+    rate on the stage-1 shape (one launch of 2^20 x 2^20, SW, best) for
+    comparison with the mix bound.  Returns the tool's launches."""
+    import numpy as np
+
+    from masa_tpu_torch import InitType, ScoreParams
+    from masa_tpu_torch.ops import wavefront as wf
+    from masa_tpu_torch.tools import roofline as rl
+
+    rl.run_cuda.launches = 0
+    line = rl.measure()
+    launches = rl.run_cuda.launches
+    log(json.dumps(line))
+    params = ScoreParams()
+    args = strip_inputs(np.random.default_rng(23), M_1M, M_1M,
+                        InitType.WITH_ZEROES, params, dev)
+    kw = dict(match=params.match, mismatch=params.mismatch,
+              gap_open=params.gap_open, gap_ext=params.gap_ext, sw=True,
+              track_best=True)
+    _, ms = timed(wf.strip, *args, **kw)
+    gcups = M_1M * M_1M / ms / 1e6
+    log(f"roofline: strip kernel {gcups:.1f} GCUPS on one launch of "
+        f"{M_1M} x {M_1M} ({ms:.1f} ms) = "
+        f"{100 * gcups / line['mix_bound_gcups']:.1f}% of the mix bound "
+        f"{line['mix_bound_gcups']} GCUPS, "
+        f"{100 * gcups / line['mix_dpx_bound_gcups']:.1f}% of the DPX mix "
+        f"bound {line['mix_dpx_bound_gcups']} GCUPS")
+    if launches <= 0:
+        raise AssertionError("the roofline tool launched no kernel")
+    return launches
 
 
 def main() -> int:
@@ -472,17 +724,27 @@ def main() -> int:
     log(f"card: {card}")
     block_rows = build_kernels()
     err = {"strip": kernel_matrix(dev, block_rows),
-           "batched_strip": batched_matrix(dev)}
+           "batched_strip": batched_matrix(dev),
+           "batched_strip_fixed": fixed_matrix(dev)}
+    err["roofline"], ms, plain_ms = roofline_matrix(dev)
+    times = {"roofline": (ms, plain_ms)}
     err_main, ms, plain_ms = main_shape(dev)
     err["strip"] = max(err["strip"], err_main)
-    times = {"strip": (ms, plain_ms)}
+    times["strip"] = (ms, plain_ms)
+    n_fixed, err_fixed, ms, plain_ms = fixed_main(dev)
+    err["batched_strip_fixed"] = max(err["batched_strip_fixed"], err_fixed)
+    times["batched_strip_fixed"] = (ms, plain_ms)
     golden_pairs()
     s0, s1 = bench_pair()
     log(f"1M pair: {len(s0)} x {len(s1)}")
-    launches, cps3 = full_run(s0, s1)
+    full_run(s0, s1)
+    launches, cps3 = cli_run(s0, s1)
     err_lvl, ms, plain_ms = stage4_level(s0, s1, cps3, dev)
     err["batched_strip"] = max(err["batched_strip"], err_lvl)
     times["batched_strip"] = (ms, plain_ms)
+    module_entry()
+    launches["batched_strip_fixed"] = n_fixed
+    launches["roofline"] = roofline_phase(dev)
     log(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": src, "replaces": tpu,
         "launches": launches[name], "max_abs_err": err[name],

@@ -7,12 +7,15 @@ The library's one-call entry point, as in masa_tpu, plus the device:
     aln = masa_tpu_torch.align(seq0, seq1, device="cpu")          # host
     print(aln.raw_score, aln.start, aln.end)
 
+The command line, with masa_tpu's options, work directory and resume:
+``python -m masa_tpu_torch a.fa b.fa --device cuda|cpu`` (``cli.py``).
+
 On a CUDA device stages 1-3 run the hand-written Hopper strip kernel
 (``csrc/strip.cu``) and stage 4 the batched strip kernel
 (``csrc/batched_strip.cu``); on the CPU stages 1-3 run the strip kernel's
 plain PyTorch version and stage 4 masa_tpu's native ladder.  The host
-layer (scoring, oracle, stage 5-6 helpers, native library) is masa_tpu's
-own, imported, never JAX.
+layer (scoring, oracle, stage 5-6 helpers, native library, the work
+directory's files) is masa_tpu's own, imported, never JAX.
 """
 
 from masa_tpu.types import AlignmentStart, InitType, Recurrence, ScoreParams

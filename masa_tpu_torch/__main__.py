@@ -1,0 +1,3 @@
+from masa_tpu_torch.cli import main
+
+raise SystemExit(main())

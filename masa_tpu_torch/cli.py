@@ -1,0 +1,243 @@
+"""masa_tpu_torch command-line interface: masa_tpu's CLI (the
+libmasa_entry_point equivalent, libmasa.cpp:762) on the port's stages.
+
+Usage:  python -m masa_tpu_torch [options] seq0.fasta seq1.fasta
+
+The options, the work directory and the printed lines are masa_tpu's.
+PyTorch has no platform switch in its environment, so the device is an
+option: ``--device cuda`` (the default; raises when no GPU is present) or
+``--device cpu``.  The multi-device modes (``--split``, ``--fork``,
+``--coordinator``) and the column split of oversize inputs are not ported
+yet (ROADMAP Queue 1 item 9): they stop with an error, never running on
+one device instead.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+import numpy as np
+
+from masa_tpu.cli import _STARTS, _apply_modifiers, _size
+from masa_tpu.core.capabilities import AlignerCapabilities
+from masa_tpu.types import ScoreParams
+
+HEADER = "masa_tpu_torch: long-sequence alignment engine on PyTorch/CUDA"
+NOT_PORTED = ("is not ported to masa_tpu_torch yet (ROADMAP Queue 1 item 9, "
+              "multi-device); use masa_tpu for it")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="masa_tpu_torch", description=HEADER,
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter,
+    )
+    p.add_argument("fasta", nargs=2, help="the two FASTA files")
+    # general
+    p.add_argument("--work-dir", default="work.tmp")
+    p.add_argument("--clear", action="store_true",
+                   help="wipe the work directory before starting")
+    p.add_argument("--verbose", type=int, default=1)
+    p.add_argument("--device", default="cuda",
+                   help="cuda (a GPU; an error without one) or cpu")
+    # input modifiers
+    p.add_argument("--trim", default=None,
+                   help="i0,i1,j0,j1 (1-based inclusive; 0 = no trim)")
+    p.add_argument("--clear-n", action="store_true")
+    p.add_argument("--reverse", default=None, choices=["1", "2", "both"])
+    p.add_argument("--complement", default=None,
+                   choices=["1", "2", "both"])
+    p.add_argument("--reverse-complement", default=None,
+                   choices=["1", "2", "both"])
+    # alignment mode
+    p.add_argument("--alignment-end", default=None,
+                   choices=["*", "+", "1", "2", "!"],
+                   help="where the alignment may end (default mirrors "
+                        "--alignment-start)")
+    p.add_argument("--alignment-start", default="*",
+                   choices=list(_STARTS),
+                   help="* local; ! global; +/1/2 semi-global")
+    # scores
+    p.add_argument("--match", type=int, default=1)
+    p.add_argument("--mismatch", type=int, default=-3)
+    p.add_argument("--gap-open", type=int, default=3)
+    p.add_argument("--gap-ext", type=int, default=2)
+    # execution
+    p.add_argument("--stage-1", action="store_true",
+                   help="run only stage 1 (score + endpoint)")
+    p.add_argument("--no-flush", action="store_true",
+                   help="do not save special rows (disables traceback)")
+    p.add_argument("--ram-size", type=_size, default=1 << 30)
+    p.add_argument("--disk-size", type=_size, default=16 << 30)
+    p.add_argument("--no-block-pruning", action="store_true")
+    p.add_argument("--dump-blocks", action="store_true",
+                   help="dump per-block score maxima for the SVG "
+                        "pruning plot")
+    p.add_argument("--sra-compression", default="none",
+                   choices=["none", "8bit", "4bit", "vlc"],
+                   help="special-rows checkpoint compression")
+    p.add_argument("--max-alignments", type=int, default=1)
+    p.add_argument("--maximum-partition", type=int, default=16)
+    p.add_argument("--stage-4-strategy", default="OPTIMIZED",
+                   choices=["ORIGINAL_MM", "ORTHOGONAL", "OPTIMIZED"])
+    p.add_argument("--output-format", default="text",
+                   choices=["text", "svg", "histogram", "binary"],
+                   help="stage-6 renderer (binary = CGFF only, which "
+                        "stage 5 always writes)")
+    p.add_argument("--backend", default="auto",
+                   choices=["auto", "numpy", "kernel"],
+                   help="numpy: the host oracle for every pass; kernel: "
+                        "the strip engine for every pass; auto: the strip "
+                        "engine on a GPU, masa_tpu's size gates on the "
+                        "CPU")
+    # multi-device (not ported: each stops with an error)
+    p.add_argument("--split", default="0", help="not ported")
+    p.add_argument("--fork", default=None, help="not ported")
+    p.add_argument("--coordinator", default=None, help="not ported")
+    p.add_argument("--test", action="store_true",
+                   help="run a built-in self-check (pipeline vs oracle on "
+                        "a random pair) on --device and exit")
+    p.add_argument("--list-devices", action="store_true",
+                   help="list devices and exit")
+    p.add_argument("--config", default=None,
+                   help="INI config file ([global]/[stageN])")
+    return p
+
+
+def _early_device(argv) -> str:
+    """--device of a command line that has no FASTA files (--test)."""
+    p = argparse.ArgumentParser(add_help=False)
+    p.add_argument("--device", default="cuda")
+    return p.parse_known_args(argv)[0].device
+
+
+def main(argv=None) -> int:
+    if argv is None:
+        argv = sys.argv[1:]
+    if "--test" in argv:
+        return _self_test(_early_device(argv))
+    if "--list-devices" in argv:
+        from masa_tpu_torch.utils.devices import list_devices
+
+        for d in list_devices():
+            print(f"{d['platform']}:{d['id']}  {d['kind']}")
+        return 0
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if args.split != "0":
+        parser.error(f"--split {NOT_PORTED}")
+    if args.fork:
+        parser.error(f"--fork {NOT_PORTED}")
+    if args.coordinator:
+        parser.error(f"--coordinator {NOT_PORTED}")
+    print(HEADER)
+
+    from masa_tpu.biology.sequence import Sequence, SequenceModifiers
+    from masa_tpu_torch.core.job import Job, JobConfig
+    from masa_tpu_torch.stages import runner
+
+    params = ScoreParams(args.match, args.mismatch, args.gap_open,
+                         args.gap_ext)
+    seqs = []
+    for k, path in enumerate(args.fasta):
+        mods = SequenceModifiers(**_apply_modifiers(args, str(k + 1), k))
+        seqs.append(Sequence.from_file(path, mods))
+    if args.trim:
+        t = [int(x) for x in args.trim.split(",")]
+        if t[0] or t[1]:
+            seqs[0] = seqs[0].trimmed_view(t[0] or 1, t[1] or len(seqs[0]))
+        if len(t) >= 4 and (t[2] or t[3]):
+            seqs[1] = seqs[1].trimmed_view(t[2] or 1, t[3] or len(seqs[1]))
+
+    seq0 = seqs[0].data()
+    seq1 = seqs[1].data()
+    print(f"seq0: {seqs[0].info.description} ({len(seq0)} bp)")
+    print(f"seq1: {seqs[1].info.description} ({len(seq1)} bp)")
+    if len(seq1) > AlignerCapabilities().maximum_seq1_len:
+        parser.error(f"seq1 needs the column split of oversize inputs, "
+                     f"which {NOT_PORTED}")
+
+    jcfg = JobConfig(
+        work_dir=args.work_dir,
+        ram_limit=args.ram_size,
+        disk_limit=args.disk_size,
+        alignment_start=_STARTS[args.alignment_start],
+        alignment_end=(_STARTS[args.alignment_end]
+                       if args.alignment_end else None),
+        params=params,
+        max_alignments=args.max_alignments,
+        clear=args.clear,
+        stage4_max_partition=args.maximum_partition,
+        stage4_strategy=args.stage_4_strategy.upper(),
+        backend=args.backend,
+        block_pruning=not args.no_block_pruning,
+        sra_compression=args.sra_compression,
+        dump_blocks=args.dump_blocks,
+    )
+    if args.config:
+        # the INI file overrides execution resources and strategy
+        from masa_tpu.utils.config import apply_to_job_config, load_config
+
+        apply_to_job_config(load_config(args.config), jcfg)
+    job = Job(jcfg, seqs[0].info.hash or str(len(seq0)),
+              seqs[1].info.hash or str(len(seq1)), device=args.device)
+
+    log = print if args.verbose else (lambda *a, **k: None)
+    best = runner.stage1(job, seq0, seq1, log=log)
+    if args.stage_1 or args.no_flush:
+        b = best.best
+        print(f"best score: {b.score} at ({b.i},{b.j})")
+        return 0
+
+    fmt = args.output_format if args.output_format != "binary" else "text"
+    aln = runner.execute_traceback(job, seq0, seq1, seqs, fmt=fmt, log=log)
+    print(f"alignment score: {aln.raw_score}  "
+          f"(matches={aln.matches} mismatches={aln.mismatches} "
+          f"gaps={aln.gap_opens}/{aln.gap_extensions})")
+    return 0
+
+
+def _self_test(device: str) -> int:
+    """The built-in self-check (--test): align a random homologous pair
+    end to end in memory on ``device`` and cross-check the score against
+    the oracle (masa_tpu's --test, on the port's pipeline)."""
+    from masa_tpu.ops import oracle
+    from masa_tpu_torch.ops import myers_miller as mm
+    from masa_tpu_torch.stages import pipeline, stage6
+    from masa_tpu_torch.utils.devices import resolve_device
+
+    rng = np.random.default_rng(12345)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    m = 2000
+    s0 = rng.choice(bases, m).astype(np.uint8)
+    s1 = s0.copy()
+    idx = rng.random(m) < 0.08
+    s1[idx] = rng.choice(bases, int(idx.sum())).astype(np.uint8)
+    s1 = np.delete(s1, np.arange(900, 930))
+    params = ScoreParams()
+    ref = oracle.dp_rows(s0, s1, params)
+    pcfg = pipeline.PipelineConfig(params=params, max_cells_stage5=1 << 14,
+                                   device=str(resolve_device(device)))
+    res, endpoint = pipeline.stage1_pass(s0, s1, pcfg)
+    ok = endpoint.score == ref.best
+    print(f"stage1 best: {endpoint.score} (oracle {ref.best})"
+          f" {'OK' if ok else 'FAIL'}")
+    cps = pipeline.stage2_march(s0, s1, pcfg, endpoint, res.specials)
+    cps = pipeline.stage3_densify(s0, s1, pcfg, cps)
+    cps = mm.stage4_reduce(s0, s1, cps, params, 16,
+                           stage5_max_cells=pcfg.max_cells_stage5,
+                           device=pcfg.device)
+    aln = pipeline.stage5_emit(s0, s1, pcfg, cps)
+    stage6.recheck(aln, s0, s1, params)
+    ok2 = aln.raw_score == ref.best
+    print(f"traceback score: {aln.raw_score} "
+          f"(matches={aln.matches} mismatches={aln.mismatches} "
+          f"gaps={aln.gap_opens}/{aln.gap_extensions})"
+          f" {'OK' if ok2 else 'FAIL'}")
+    print("self-test:", "PASS" if ok and ok2 else "FAIL")
+    return 0 if ok and ok2 else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

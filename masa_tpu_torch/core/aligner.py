@@ -25,6 +25,7 @@ from masa_tpu_torch.ops import wavefront as wf
 @dataclasses.dataclass
 class AlignerStats:
     cells: int = 0
+    pruned_cells: int = 0
     partitions: int = 0
 
 
@@ -84,9 +85,7 @@ class CUDAAligner(Aligner):
         self._dev0 = self._dev1 = None
 
     def get_capabilities(self) -> AlignerCapabilities:
-        caps = AlignerCapabilities()
-        caps.block_pruning = False
-        return caps
+        return AlignerCapabilities()  # block pruning included
 
     def set_sequences(self, seq0: np.ndarray, seq1: np.ndarray) -> None:
         super().set_sequences(seq0, seq1)
@@ -115,11 +114,16 @@ class CUDAAligner(Aligner):
         def on_row(r, bus_h, bus_f):
             mgr.dispatch_row(p.i0 + r, bus_h, bus_f)
 
-        def stop(out, rows_done, strip_rows):
+        def stop(out, rows_done, strip_rows, col_off):
             s, bi, bj = (int(v) for v in out.best.tolist())
             mgr.dispatch_score(p.i0 + rows_done - strip_rows + bi + 1,
-                               p.j0 + bj + 1, s)
+                               p.j0 + col_off + bj + 1, s)
             return not mgr.must_continue()
+
+        blocks = None
+        if mgr.blocks_sink is not None:
+            def blocks(rows_done, maxima):
+                mgr.dispatch_block_scores(p.i0 + rows_done, maxima)
 
         # per-strip score dispatch only when the manager wants every
         # candidate: a partition is one launch on the card, so there is no
@@ -133,10 +137,13 @@ class CUDAAligner(Aligner):
             on_special_row=on_row if iv else None,
             stop_check=(stop if cfg.track_best and mgr.want_all_scores
                         else None),
+            prune=mgr.must_prune_blocks(),
             pad_rows=mgr.pad_rows,
+            blocks_sink=blocks,
             want_last_row=mgr.must_dispatch_last_row(),
         )
         self.stats.cells += res.cells
+        self.stats.pruned_cells += res.pruned_cells
         self.stats.partitions += 1
         if res.last_h is not None:
             mgr.dispatch_last_row(p.i1, res.last_h, res.last_f)

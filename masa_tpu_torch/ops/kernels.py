@@ -1,14 +1,16 @@
 """Build and bind the hand-written Hopper kernels (``csrc/*.cu``).
 
-Each kernel source (``csrc/strip.cu``, ``csrc/batched_strip.cu``) is
-compiled with ``nvcc`` for ``sm_90a`` into its own shared library with a
-plain C interface, at first use, into ``masa_tpu_torch/_build/`` (named by
-the source's hash, so an edited source rebuilds), and bound with
-``ctypes``.  Nothing here runs when the module is imported: the CPU tests
-import it on hosts with no toolkit.
+Each kernel source (``csrc/strip.cu``, ``csrc/batched_strip.cu``,
+``csrc/roofline.cu``) is compiled with ``nvcc`` for ``sm_90a`` into its own
+shared library with a plain C interface, at first use, into
+``masa_tpu_torch/_build/`` (named by the source's hash, so an edited source
+rebuilds), and bound with ``ctypes``.  Nothing here runs when the module is
+imported: the CPU tests import it on hosts with no toolkit.
 
-``strip_cuda`` and ``batched_strip_cuda`` launch their kernels on
-PyTorch's current stream and count their launches in ``.launches``.
+``strip_cuda``, ``batched_strip_cuda`` and ``batched_strip_fixed_cuda``
+launch their kernels on PyTorch's current stream and count their launches
+in ``.launches``; the roofline tool's launcher lives in
+``masa_tpu_torch/tools/roofline.py``.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = {name: os.path.join(_PKG, "csrc", f"{name}.cu")
-           for name in ("strip", "batched_strip")}
+           for name in ("strip", "batched_strip", "roofline")}
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -75,11 +77,18 @@ _SIGNATURES = {
         "masa_batched_strip_max_threads": [],
         "masa_batched_strip_launch": (["p"] * 3 + ["i"] * 2 + ["p"] * 2
                                       + ["i"] * 5 + ["p"]),
+        "masa_batched_strip_fixed_launch": (["p"] * 5 + ["i"] * 4
+                                            + ["p"] * 2 + ["i"] * 4
+                                            + ["p"]),
+    },
+    "roofline": {
+        "masa_roofline_launch": ["i"] * 4 + ["p"] * 3,
     },
 }
 
 
-def _load(name: str = "strip"):
+def load(name: str = "strip"):
+    """The bound library of ``csrc/<name>.cu``, built at first use."""
     if name not in _libs:
         lib = ctypes.CDLL(build(name))
         types = {"p": ctypes.c_void_p, "i": ctypes.c_int}
@@ -92,12 +101,12 @@ def _load(name: str = "strip"):
 
 def block_rows() -> int:
     """Rows one block of the strip kernel owns (ALPHA * THREADS)."""
-    return int(_load().masa_strip_block_rows())
+    return int(load().masa_strip_block_rows())
 
 
 def resident_blocks() -> int:
     """Strip-kernel blocks the current card holds at once."""
-    n = int(_load().masa_strip_resident_blocks())
+    n = int(load().masa_strip_resident_blocks())
     if n < 1:
         raise RuntimeError("could not query the card's occupancy")
     return n
@@ -138,7 +147,7 @@ def strip_cuda(a, b, bus_h, bus_f, col_h, col_e, corner: int, *,
         _check(name, x, torch.int32, n, dev)
     if flush_every < 0:
         raise ValueError(f"flush_every must be >= 0, got {flush_every}")
-    lib = _load()
+    lib = load()
     n_sub = -(-h // int(lib.masa_strip_block_rows()))
     n_int = (h - 1) // flush_every if flush_every else 0
 
@@ -219,10 +228,9 @@ def batched_strip_cuda(a, b, elems, width: int, *, match: int,
         raise ValueError("an element reaches past its sequence view")
     if not (np.isin(rc, (0, 1, 2)).all() and np.isin(cc, (0, 1, 2)).all()):
         raise ValueError("border codes must be 0, 1 or 2 (no CUSTOM)")
-    lib = _load("batched_strip")
-    max_t = int(lib.masa_batched_strip_max_threads())
-    need = -(-int(h.max()) // _ALPHA)  # threads the tallest element fills
-    threads = min(max_t, max(32, -(-need // 32) * 32))
+    lib = load("batched_strip")
+    threads = _threads_for(int(h.max()),
+                           int(lib.masa_batched_strip_max_threads()))
     B = el.shape[0]
     elems_d = torch.from_numpy(el).to(dev)
     neg = -999999999
@@ -244,3 +252,70 @@ def batched_strip_cuda(a, b, elems, width: int, *, match: int,
 
 
 batched_strip_cuda.launches = 0
+
+
+def _threads_for(h: int, max_threads: int) -> int:
+    """Threads per block of the batched kernels for elements of up to h
+    rows: enough to own every row (ALPHA each), whole warps, capped."""
+    need = -(-h // _ALPHA)
+    return min(max_threads, max(32, -(-need // 32) * 32))
+
+
+def batched_strip_fixed_cuda(a, b, col_h, col_e, bus_h, bus_f, corners, *,
+                             match: int, mismatch: int, gap_open: int,
+                             gap_ext: int):
+    """Launch the equal-shape batched strip kernel (see
+    ``csrc/batched_strip.cu``, ``batched_strip_fixed_kernel``).
+
+    ``a`` (B, h) and ``b`` (B, nj) are uint8; the left border ``col_h``/
+    ``col_e`` (B, h), the row above ``bus_h``/``bus_f`` (B, nj) and the
+    ``corners`` (B,) are int32, all contiguous on one CUDA device.  Returns
+    the last rows' ``(bus_h, bus_f)``, (B, nj) int32; the inputs are not
+    changed."""
+    dev = b.device
+    if dev.type != "cuda":
+        raise ValueError(
+            f"batched_strip_fixed_cuda needs CUDA tensors, got {dev}")
+    if a.dim() != 2 or b.dim() != 2 or a.shape[0] != b.shape[0]:
+        raise ValueError(f"a and b must be (B, h) and (B, nj), got "
+                         f"{tuple(a.shape)} and {tuple(b.shape)}")
+    B, h = a.shape
+    nj = b.shape[1]
+    if B < 1 or h < 1 or nj < 1:
+        raise ValueError(f"empty batch ({B} x {h} rows x {nj} columns)")
+    for name, x, dtype, shape in (
+            ("a", a, torch.uint8, (B, h)), ("b", b, torch.uint8, (B, nj)),
+            ("col_h", col_h, torch.int32, (B, h)),
+            ("col_e", col_e, torch.int32, (B, h)),
+            ("bus_h", bus_h, torch.int32, (B, nj)),
+            ("bus_f", bus_f, torch.int32, (B, nj)),
+            ("corners", corners, torch.int32, (B,))):
+        if x.device != dev:
+            raise ValueError(f"{name} is on {x.device}, expected {dev}")
+        if x.dtype != dtype or tuple(x.shape) != shape:
+            raise ValueError(f"{name} must be a {shape} {dtype} tensor, got "
+                             f"{tuple(x.shape)} {x.dtype}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    lib = load("batched_strip")
+    threads = _threads_for(h, int(lib.masa_batched_strip_max_threads()))
+    # the kernel rewrites the row above in place
+    out_h, out_f = bus_h.clone(), bus_f.clone()
+
+    def ptr(x):
+        return ctypes.c_void_p(x.data_ptr())
+
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.masa_batched_strip_fixed_launch(
+            ptr(a), ptr(b), ptr(col_h), ptr(col_e), ptr(corners), B, h, nj,
+            threads, ptr(out_h), ptr(out_f), match, mismatch, gap_open,
+            gap_ext, ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(
+            f"batched strip (fixed) kernel launch failed: CUDA error {rc}")
+    batched_strip_fixed_cuda.launches += 1
+    return out_h, out_f
+
+
+batched_strip_fixed_cuda.launches = 0

@@ -4,8 +4,19 @@ the borders, the best score and the special rows.
 Counterpart of ``masa_tpu/ops/strips.py:run_partition`` with what the main
 path uses: the strip loop with its bus carry, special rows at any cadence
 (flushed inside the strip by the kernel), the best fold, the last row and
-column, and the goal stop.  Strips run at their true height, so
-``pad_rows`` needs no sentinel rows here.
+column, the goal stop, block pruning and the blocks sink.  Strips run at
+their true height, so ``pad_rows`` needs no sentinel rows here.
+
+Block pruning (SW with best tracking, ``core/pruning``): before each strip
+the bus's per-chunk maxima (``PRUNE_CHUNK`` columns a chunk, taken on the
+device, so ng ints cross to the host) and the best so far give the
+``[wl, wr)`` column window that can still beat the best.  The strip runs
+on that window only, with -INF buses outside it; a window starting past
+column 0 has a -INF left wall and corner; an empty window skips the strip
+and leaves -INF buses.  The TPU's compile-key bucketing of window widths
+is left out: the kernel takes any width.  On the card one launch covers a
+whole stage-1 partition (``strip_height``), so the window is recomputed
+only between launches.
 """
 
 from __future__ import annotations
@@ -16,12 +27,17 @@ from typing import Callable
 import numpy as np
 import torch
 
+from masa_tpu.core import pruning
 from masa_tpu.models.scoring import border_cells
 from masa_tpu.types import INF, InitType, Recurrence, ScoreParams
 from masa_tpu_torch.ops import wavefront as wf
 
 # Device bytes the interior rows of one launch may hold (H and F, int32).
 FLUSH_ROWS_BYTES = 1 << 30
+# Columns per pruning chunk (and per --dump-blocks block): the window's
+# granularity, a cost the host pays per strip (ng = nj / 512 maxima).
+PRUNE_CHUNK = 512
+NEG = -INF
 
 
 @dataclasses.dataclass
@@ -35,6 +51,7 @@ class PartitionResult:
     col_e: np.ndarray | None
     specials: dict[int, tuple[np.ndarray, np.ndarray]]
     cells: int = 0
+    pruned_cells: int = 0
 
 
 def _border_vec(init, params, length, start, custom):
@@ -62,6 +79,15 @@ def strip_height(cfg: wf.StripConfig, nj: int, special_every: int) -> int:
     return special_every * max(min(cfg.rows // special_every, fit), 1)
 
 
+def chunk_maxima(bus_h: torch.Tensor, ng: int) -> np.ndarray:
+    """Per-chunk max of a bus padded with -INF to ng chunks, reduced where
+    the bus lies; ng ints come back."""
+    pad = torch.full((ng * PRUNE_CHUNK - bus_h.numel(),), NEG,
+                     dtype=bus_h.dtype, device=bus_h.device)
+    return (torch.cat([bus_h, pad]).view(ng, PRUNE_CHUNK).amax(1)
+            .cpu().numpy().astype(np.int64))
+
+
 def run_partition(
     cfg: wf.StripConfig,
     seq0,
@@ -74,7 +100,9 @@ def run_partition(
     special_every: int = 0,
     on_special_row: Callable | None = None,
     stop_check: Callable | None = None,
+    prune: bool = False,
     pad_rows: bool = False,
+    blocks_sink: Callable | None = None,
     want_last_row: bool = True,
 ) -> PartitionResult:
     """Align one partition.  ``seq0``/``seq1`` are uint8 tensors or numpy
@@ -85,10 +113,14 @@ def run_partition(
     ``on_special_row(dp_row, bus_h, bus_f)`` receives every row at a
     multiple of ``special_every`` below the last (int64 host arrays of
     length n, border excluded); without it the rows land in
-    ``specials``.  ``stop_check(out, rows_done, strip_rows)`` sees each
-    strip's ``StripOut`` (its best is strip-local) and may return True to
-    stop.  ``pad_rows`` (score-only callers) drops the last-row output,
-    as in masa_tpu; the tail strip still runs at its true height."""
+    ``specials``.  ``stop_check(out, rows_done, strip_rows, col_off)``
+    sees each strip's ``StripOut`` (its best is local to the strip and to
+    its window starting at column ``col_off``) and may return True to
+    stop.  ``prune`` enables block pruning (SW with best tracking, no last
+    column).  ``blocks_sink(rows_done, chunk_maxima)`` receives the bus's
+    per-chunk maxima after every strip.  ``pad_rows`` (score-only callers)
+    drops the last-row output, as in masa_tpu; the tail strip still runs
+    at its true height."""
     seq1 = _as_chars(seq1)
     seq0 = _as_chars(seq0).to(seq1.device)
     dev = seq1.device
@@ -97,6 +129,8 @@ def run_partition(
         raise ValueError("a partition needs at least one column")
     go, ge = params.gap_open, params.gap_ext
     sw = cfg.recurrence == Recurrence.SMITH_WATERMAN
+    prune = prune and cfg.track_best and sw and not cfg.store_lastcol
+    ng = -(-nj // PRUNE_CHUNK)
     kw = dict(match=params.match, mismatch=params.mismatch, gap_open=go,
               gap_ext=ge, sw=sw, track_best=cfg.track_best,
               store_lastcol=cfg.store_lastcol, flush_every=special_every)
@@ -136,10 +170,14 @@ def run_partition(
         else:
             specials[r] = (bh, bf)
 
-    cells = 0
+    def neg(*shape):
+        return torch.full(shape, NEG, dtype=torch.int32, device=dev)
+
+    cells = pruned_cells = 0
     i0 = 0
     while i0 < m:
         hs = min(R, m - i0)
+        n_int = (hs - 1) // special_every if special_every else 0
         if col_init == InitType.CUSTOM:
             ich, ice = _border_vec(col_init, params, hs, i0 + 1, first_col)
             c_h = torch.from_numpy(np.ascontiguousarray(ich)).to(dev)
@@ -147,35 +185,65 @@ def run_partition(
         else:
             k = torch.arange(i0 + 1, i0 + 1 + hs, device=dev)
             c_h = wf.border_h(col_init, k, go, ge)
-            c_e = torch.full((hs,), -INF, dtype=torch.int32, device=dev)
+            c_e = neg(hs)
         corner = int(_border_vec(col_init, params, 1, i0, first_col)[0][0])
 
-        out = wf.strip(seq0[i0:i0 + hs], seq1, bus_h, bus_f, c_h, c_e,
-                       corner, **kw)
-        if out.rows_h is not None:
-            for q in range(out.rows_h.shape[0]):
-                emit_special(i0 + (q + 1) * special_every, out.rows_h[q],
-                             out.rows_f[q])
-        bus_h, bus_f = out.bus_h, out.bus_f
-        cells += hs * nj
+        wl, wr = 0, nj  # the strip's column window
+        if prune:
+            if stop_check is None:
+                best = int(dev_best[0])
+            cl, cr = pruning.pruning_window(
+                chunk_maxima(bus_h, ng), best, i0, m, nj, PRUNE_CHUNK,
+                params, border_max=int(c_h.max()))
+            wl, wr = cl * PRUNE_CHUNK, min(cr * PRUNE_CHUNK, nj)
+        out = None
+        if wl >= wr:
+            # the whole strip is pruned: -INF buses, interior rows too
+            pruned_cells += hs * nj
+            bus_h, bus_f = neg(nj), neg(nj)
+            rows_h = rows_f = neg(n_int, nj) if n_int else None
+        else:
+            if wl > 0:
+                # -INF wall at the window's left edge (clearPrunedBlocks)
+                c_h, c_e, corner = neg(hs), neg(hs), NEG
+            out = wf.strip(seq0[i0:i0 + hs], seq1[wl:wr], bus_h[wl:wr],
+                           bus_f[wl:wr], c_h, c_e, corner, **kw)
+            cells += hs * (wr - wl)
+            pruned_cells += hs * (nj - (wr - wl))
+            rows_h, rows_f = out.rows_h, out.rows_f
+            if wr - wl == nj:
+                bus_h, bus_f = out.bus_h, out.bus_f
+            else:
+                bus_h, bus_f = neg(nj), neg(nj)
+                bus_h[wl:wr], bus_f[wl:wr] = out.bus_h, out.bus_f
+                if rows_h is not None:
+                    rows_h, rows_f = neg(n_int, nj), neg(n_int, nj)
+                    rows_h[:, wl:wr] = out.rows_h
+                    rows_f[:, wl:wr] = out.rows_f
+        if rows_h is not None:
+            for q in range(rows_h.shape[0]):
+                emit_special(i0 + (q + 1) * special_every, rows_h[q],
+                             rows_f[q])
 
-        if cfg.track_best and stop_check is None:
+        if out is not None and cfg.track_best and stop_check is None:
             # fold on the device; the earlier strip wins ties
             s, bi, bj = out.best
-            cand = torch.stack([s, i0 + bi + 1, bj + 1])
+            cand = torch.stack([s, i0 + bi + 1, wl + bj + 1])
             dev_best = torch.where(s > dev_best[0], cand, dev_best)
-        elif cfg.track_best:
+        elif out is not None and cfg.track_best:
             s, bi, bj = (int(v) for v in out.best.tolist())
             if s > best:
-                best, best_i, best_j = s, i0 + bi + 1, bj + 1
+                best, best_i, best_j = s, i0 + bi + 1, wl + bj + 1
         if cfg.store_lastcol:
             col_h[i0 + 1:i0 + 1 + hs] = out.lastcol_h.cpu().numpy()
             col_e[i0 + 1:i0 + 1 + hs] = out.lastcol_e.cpu().numpy()
 
         i0 += hs
+        if blocks_sink is not None:
+            blocks_sink(i0, chunk_maxima(bus_h, ng))
         if special_every and i0 % special_every == 0 and i0 < m:
             emit_special(i0, bus_h, bus_f)
-        if stop_check and stop_check(out, i0, hs):
+        if stop_check and out is not None and stop_check(out, i0, hs, wl):
             break
 
     if cfg.track_best and stop_check is None:
@@ -190,4 +258,5 @@ def run_partition(
         last_f[1:] = bus_f.cpu().numpy()
     return PartitionResult(last_h=last_h, last_f=last_f, best=best,
                            best_i=best_i, best_j=best_j, col_h=col_h,
-                           col_e=col_e, specials=specials, cells=cells)
+                           col_e=col_e, specials=specials, cells=cells,
+                           pruned_cells=pruned_cells)

@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from masa_tpu.types import INF, InitType, Recurrence
@@ -248,3 +249,74 @@ def batched_strip(a, b, elems, width: int, *, match: int, mismatch: int,
         return kernels.batched_strip_cuda(a, b, elems, width, **kw)
     raise ValueError(f"no batched strip implementation for device "
                      f"{a.device}")
+
+
+def batched_strip_fixed_plain(a, b, col_h, col_e, bus_h, bus_f, corners, *,
+                              match: int, mismatch: int, gap_open: int,
+                              gap_ext: int
+                              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """B equal-shape score-only NW strips as one row sweep over the batch:
+    ``batched_strip_plain``'s sweep with every border given, not
+    synthesized.  ``a`` (B, h) and ``b`` (B, nj) are the characters; per
+    element the left border ``col_h``/``col_e`` (B, h) is DP (H, E) at rows
+    1..h of the border column, ``bus_h``/``bus_f`` (B, nj) the row above
+    and ``corners`` (B,) its border cell.  Returns the last row's (H, F),
+    (B, nj) int32 (the contract of ``kernels.batched_strip_fixed_cuda``)."""
+    i64 = torch.int64
+    go, ge = gap_open, gap_ext
+    nj = b.shape[1]
+    cols = torch.arange(nj, device=b.device, dtype=i64)
+    jge = cols[1:] * ge
+    ramp = (cols + 1) * ge
+    ch, ce = col_h.to(i64), col_e.to(i64)
+    hp, fp = bus_h.to(i64), bus_f.to(i64)
+    up_left = corners.to(i64)  # H(row above, border column)
+    for r in range(a.shape[1]):
+        f = torch.maximum(hp - go, fp) - ge
+        diag = torch.cat([up_left[:, None], hp[:, :-1]], 1)
+        d = torch.maximum(
+            diag + torch.where(b == a[:, r:r + 1], match, mismatch), f)
+        y = torch.cat([torch.maximum(ch[:, r] - go, ce[:, r])[:, None],
+                       d[:, :-1] - go + jge], 1)
+        e = torch.cummax(y, 1).values - ramp
+        hp, fp, up_left = torch.maximum(d, e), f, ch[:, r]
+    return hp.to(torch.int32), fp.to(torch.int32)
+
+
+def batched_strip_fixed(a, b, col_h, col_e, bus_h, bus_f, corners, *,
+                        match: int, mismatch: int, gap_open: int,
+                        gap_ext: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """B equal-shape score-only NW strips with given borders (the port of
+    ``masa_tpu.ops.wavefront.batched_strip_pallas``, in logical column
+    order): the plain version for CPU tensors, the Hopper kernel for CUDA
+    tensors (which raises if it cannot build or launch)."""
+    args = (a, b, col_h, col_e, bus_h, bus_f, corners)
+    kw = dict(match=match, mismatch=mismatch, gap_open=gap_open,
+              gap_ext=gap_ext)
+    if b.device.type == "cpu":
+        return batched_strip_fixed_plain(*args, **kw)
+    if b.device.type == "cuda":
+        return kernels.batched_strip_fixed_cuda(*args, **kw)
+    raise ValueError(f"no batched strip implementation for device "
+                     f"{b.device}")
+
+
+def decode_packed_row(u, mark, exact, nj: int):
+    """The host inverse of masa_tpu's packed special-row form (the port of
+    ``masa_tpu.ops.wavefront.decode_packed_row``): ``u`` holds two signed
+    4-bit deltas per byte (low nibble first), ``mark``/``exact`` the
+    escape positions and their absolute values.  Returns the (nj,) int64
+    row."""
+    u = np.asarray(u, np.uint8)
+    nib = np.empty(2 * len(u), np.int64)
+    nib[0::2] = u & 0xF
+    nib[1::2] = u >> 4
+    nib[nib > 7] -= 16
+    out = np.cumsum(nib[:nj])
+    if len(mark):
+        # each escape resets the running value to its exact one
+        corr = np.asarray(exact, np.int64) - out[mark]
+        add = np.zeros(nj, np.int64)
+        add[mark] = np.diff(np.concatenate([[0], corr]))
+        out += np.cumsum(add)
+    return out

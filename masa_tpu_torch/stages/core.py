@@ -101,6 +101,7 @@ class FwdResult:
     cells: int
     col_h: np.ndarray | None = None  # (m+1,) last column H if requested
     col_e: np.ndarray | None = None
+    pruned_cells: int = 0
 
 
 def default_config(device) -> wf.StripConfig:
@@ -144,14 +145,21 @@ def forward_pass(
     backend: str = "auto",
     cfg: wf.StripConfig | None = None,
     track_best: bool = True,
+    prune: bool = False,
     pad_rows: bool = False,
+    best_sink=None,
+    blocks_sink=None,
     want_last_row: bool = True,
     want_lastcol: bool = False,
     nw_best: bool = False,
     device="cuda",
 ) -> FwdResult:
     """Forward DP over a partition; persists special rows (with synthesized
-    border gap values) into `store`, through a manager + aligner pair."""
+    border gap values) into `store`, through a manager + aligner pair.
+    ``prune`` enables block pruning where the aligner supports it (the
+    strip engine, SW); ``best_sink(i, j, score)`` receives every candidate
+    score (multi-alignment runs); ``blocks_sink(rows_done, maxima)`` the
+    per-chunk bus maxima after each strip (--dump-blocks)."""
     m, n = len(seq0), len(seq1)
     store = store if store is not None else SpecialRowStore()
     backend = resolve_backend(backend, m * n, 4_000_000, device)
@@ -162,13 +170,17 @@ def forward_pass(
     mgr.set_first_column(col_init, first_col)
     mgr.set_special_rows_store(store)
     mgr.set_special_row_interval(special_every)
+    mgr.set_block_pruning(prune)
     # NW best tracking is opt-in (nw_best): --alignment-end '*' selects the
     # endpoint as the global NW maximum
     mgr.track_best = track_best and (
         recurrence == Recurrence.SMITH_WATERMAN or nw_best)
+    mgr.want_all_scores = best_sink is not None
+    mgr.score_callback = best_sink
     mgr.pad_rows = pad_rows
     mgr.want_last_row = want_last_row and not pad_rows
     mgr.last_column_wanted = want_lastcol
+    mgr.blocks_sink = blocks_sink
     aligner.set_sequences(seq0, seq1)
     mgr.align_partition(Partition(0, 0, m, n))
 
@@ -181,7 +193,8 @@ def forward_pass(
     if want_lastcol and mgr.last_column is not None:
         _, col_h, col_e = mgr.last_column
     return FwdResult(lh, lf, best, best_i, best_j, store,
-                     aligner.stats.cells, col_h=col_h, col_e=col_e)
+                     aligner.stats.cells, col_h=col_h, col_e=col_e,
+                     pruned_cells=aligner.stats.pruned_cells)
 
 
 def goal_reachable(cp: Crosspoint, cut_row: int, match: int) -> bool:
@@ -349,7 +362,10 @@ def reverse_march(
     """The stage-2 loop: march crosspoints from `endpoint` back toward the
     origin, matching at stored special rows (virtual row 0 included).
 
-    Returns crosspoints ordered from start to endpoint (ascending i).
+    ``specials`` is any row store with ``get``, ``next_below`` and
+    ``truncate_above``: a SpecialRowStore, or a special-rows-area
+    partition (``core/sra``), which the runner passes.  Returns
+    crosspoints ordered from start to endpoint (ascending i).
     row_init/col_init describe the matrix borders, used for the final
     row-0 matching and origin fixups."""
     n = len(seq1)

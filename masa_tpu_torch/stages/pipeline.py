@@ -5,7 +5,8 @@
     stage 2  reverse goal-score march at special rows (the strip kernel)
     stage 3  recursive densification inside partitions (the strip kernel)
     stage 4  Myers-Miller splitting (the batched strip kernel on a GPU,
-             masa_tpu's native host ladder on the CPU)
+             down to isqrt(max_cells_stage5); masa_tpu's native host
+             ladder on the CPU)
     stage 5  exact constrained DP + traceback per partition (host)
     stage 6  the independent re-score of the stage-5 statistics
 """
@@ -13,6 +14,7 @@
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 
 import numpy as np
@@ -301,6 +303,9 @@ def align_pair(
               res.specials)
     cps = run("stage3", stage3_densify, seq0, seq1, pcfg, cps)
     if pcfg.max_partition:
-        cps = run("stage4", mm.stage4_reduce, seq0, seq1, cps, pcfg.params,
-                  pcfg.max_partition, pcfg.device)
+        reduce = functools.partial(mm.stage4_reduce,
+                                   stage5_max_cells=pcfg.max_cells_stage5,
+                                   device=pcfg.device)
+        cps = run("stage4", reduce, seq0, seq1, cps, pcfg.params,
+                  pcfg.max_partition)
     return run("stage5", stage5_emit, seq0, seq1, pcfg, cps, sequences)

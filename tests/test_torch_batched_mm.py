@@ -201,3 +201,134 @@ def test_slice_with_batched_stage4(start):
     aln = pipeline.stage5_emit(s0, s1, pcfg, cps)
     assert aln.raw_score == want.raw_score
     assert stage6.recheck(aln, s0, s1, P).score == aln.raw_score
+
+
+def fixed_inputs(seed, custom):
+    """masa_tpu's batched-strip test inputs (tests/test_wavefront.py:
+    test_batched_strip_pallas_interpret_parity: B=3, h=300, nj=256,
+    widths 200/256/130, WITH_GAPS borders), or CUSTOM random borders and
+    corners.  Returns per-element (s0, s1, w, bus_h, bus_f, col_h, col_e,
+    corner), bus and border arrays holding the DP values of row 0 and of
+    column 0 at rows 1..h."""
+    from masa_tpu.models.scoring import border_cells
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for k, w in enumerate((200, 256, 130)):
+        s0 = rng.choice(BASES, 300).astype(np.uint8)
+        s1 = rng.choice(BASES, w).astype(np.uint8)
+        if custom:
+            rh = rng.integers(-60, 40, w + 1)
+            rf = np.where(rng.random(w + 1) < 0.3, -wf.INF,
+                          rng.integers(-80, 20, w + 1))
+            ch = rng.integers(-60, 40, 301)
+            ce = np.where(rng.random(301) < 0.3, -wf.INF,
+                          rng.integers(-80, 20, 301))
+            ch[0] = rh[0]
+        else:
+            rh, rf = border_cells(w + 1, InitType.WITH_GAPS, P)
+            ch, ce = border_cells(301, InitType.WITH_GAPS, P)
+        out.append((s0, s1, w, rh, rf, ch, ce))
+    return out
+
+
+@pytest.mark.parametrize("custom", [False, True], ids=["gaps", "custom"])
+def test_batched_strip_fixed_matches_jax_kernel(custom):
+    """Kernel 2's plain version against masa_tpu's equal-shape batched
+    Pallas kernel in interpret mode and against the NumPy oracle, at that
+    kernel's own test shapes.  Columns past an element's width are
+    padding (masa_tpu's sentinels, the port's -INF buses); the first w
+    are compared."""
+    cfg = jwf.WavefrontConfig(alpha=4, rs=1, chunk=256,
+                              recurrence=Recurrence.NEEDLEMAN_WUNSCH,
+                              track_best=False, store_lastcol=False,
+                              interpret=True)
+    B, h, nj = 3, 300, 256
+    plen = jwf.padded_len(cfg, nj)
+    els = fixed_inputs(11, custom)
+    a_all = np.empty((B, cfg.alpha, cfg.rs, 128), np.int32)
+    ih_all, ie_all = np.empty_like(a_all), np.empty_like(a_all)
+    b_all = np.full((B, plen), jwf.B_SENTINEL, np.int32)
+    bh_all = np.full((B, plen), -jwf.INF, np.int32)
+    bf_all = np.full((B, plen), -jwf.INF, np.int32)
+    corners = np.zeros(B, np.int32)
+    a = np.zeros((B, h), np.uint8)
+    b = np.zeros((B, nj), np.uint8)
+    col_h, col_e = np.zeros((B, h), np.int32), np.zeros((B, h), np.int32)
+    bus_h = np.full((B, nj), -wf.INF, np.int32)
+    bus_f = np.full((B, nj), -wf.INF, np.int32)
+    for k, (s0, s1, w, rh, rf, ch, ce) in enumerate(els):
+        a_all[k] = jwf.pack_strip_rows(cfg, s0.astype(np.int32))
+        b_all[k, :w] = s1
+        bh_all[k, :w], bf_all[k, :w] = rh[1:], rf[1:]
+        ih_all[k], ie_all[k] = jwf.pack_border_cols(cfg, ch[1:], ce[1:])
+        corners[k] = ch[0]
+        a[k], b[k, :w] = s0, s1
+        col_h[k], col_e[k] = ch[1:], ce[1:]
+        bus_h[k, :w], bus_f[k, :w] = rh[1:], rf[1:]
+    want_h, want_f = (np.asarray(x) for x in jwf.batched_strip_pallas(
+        cfg, a_all, b_all, bh_all, bf_all, ih_all, ie_all, corners,
+        nj=nj, h_true=h, B=B))
+    got_h, got_f = wf.batched_strip_fixed(
+        t(a), t(b), t(col_h), t(col_e), t(bus_h), t(bus_f), t(corners),
+        **KW)
+    lane = (h - 1) // cfg.alpha  # masa_tpu's physical bus offset
+    for k, (s0, s1, w, rh, rf, ch, ce) in enumerate(els):
+        np.testing.assert_array_equal(got_h[k, :w].numpy(),
+                                      want_h[k, lane:lane + w])
+        np.testing.assert_array_equal(got_f[k, :w].numpy(),
+                                      want_f[k, lane:lane + w])
+        ref = oracle.dp_rows(s0, s1, P, Recurrence.NEEDLEMAN_WUNSCH,
+                             InitType.CUSTOM, InitType.CUSTOM,
+                             first_row=(rh, rf), first_col=(ch, ce))
+        np.testing.assert_array_equal(got_h[k, :w].numpy(), ref.last_h[1:])
+        np.testing.assert_array_equal(got_f[k, :w].numpy(), ref.last_f[1:])
+
+
+def test_batched_strip_fixed_cpu_routes_to_plain():
+    before = kernels.batched_strip_fixed_cuda.launches
+    s0, s1 = seqs(8, 40, 30)
+    args = (t(s0.reshape(2, 20)), t(s1.reshape(2, 15)),
+            t(np.zeros((2, 20), np.int32)),
+            t(np.full((2, 20), -wf.INF, np.int32)),
+            t(np.zeros((2, 15), np.int32)),
+            t(np.full((2, 15), -wf.INF, np.int32)),
+            t(np.zeros(2, np.int32)))
+    got = wf.batched_strip_fixed(*args, **KW)
+    want = wf.batched_strip_fixed_plain(*args, **KW)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    assert kernels.batched_strip_fixed_cuda.launches == before == 0
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.batched_strip_fixed_cuda(*args, **KW)
+
+
+@pytest.mark.parametrize("max_cells", [1 << 12, 1 << 14])
+def test_stage4_card_branch_stops_at_sqrt_max_cells(monkeypatch, max_cells):
+    """The card's stage 4 (the batched engine, reached here on CPU
+    tensors) splits only down to max(16, isqrt(stage5_max_cells)), as
+    masa_tpu's batched engine does on its device: the crosspoints are
+    masa_tpu's at that stop, and coarser than the native ladder's."""
+    import math
+
+    s0, s1, cps = nw_pair(6, 900, 20)
+    mps = max(16, math.isqrt(max_cells))
+    assert mps > 16
+    monkeypatch.setattr(myers_miller, "stage4_engine",
+                        lambda device, strategy: "batched")
+    got = myers_miller.stage4_reduce(s0, s1, cps, P, 16,
+                                     stage5_max_cells=max_cells,
+                                     device="cpu")
+    assert got == jbm.reduce_partitions_batched(s0, s1, cps, P, mps)
+    check_chain(s0, s1, got, mps)
+    assert len(got) < len(batched_mm.reduce_partitions_batched(
+        s0, s1, cps, P, 16, device="cpu"))
+
+
+def test_stage4_engine_follows_the_device():
+    from masa_tpu.native import bindings
+
+    S = myers_miller.SplitStrategy
+    assert myers_miller.stage4_engine("cuda", S.OPTIMIZED) == "batched"
+    assert myers_miller.stage4_engine("cuda", S.ORIGINAL_MM) == "python"
+    assert myers_miller.stage4_engine("cpu", S.OPTIMIZED) == (
+        "native" if bindings.available() else "python")

@@ -1,5 +1,5 @@
-"""The Hopper kernels (the strip kernel and the batched strip kernel)
-against their plain PyTorch versions, on the card.
+"""The Hopper kernels (the strip kernel, the two batched strip kernels and
+the roofline bodies) against their plain PyTorch versions, on the card.
 
 These need a CUDA GPU and nvcc and skip elsewhere.  The repo's conftest
 imports JAX, which the GPU machine lacks, so run them there with:
@@ -188,3 +188,62 @@ def test_batched_stage4_matches_cpu(cuda):
                                                device=cuda)
     assert got == batched_mm.reduce_partitions_batched(s0, s1, cps, P, 16,
                                                        device="cpu")
+
+
+def fixed_inputs(seed, B, h, nj, dev):
+    """Equal-shape batches with CUSTOM random borders, buses and corners
+    (-INF in a fifth of the gap cells)."""
+    rng = np.random.default_rng(seed)
+
+    def t(x, dt):
+        return torch.from_numpy(np.ascontiguousarray(x).astype(dt)).to(dev)
+
+    def gaps(shape):
+        return np.where(rng.random(shape) < 0.2, NEG,
+                        rng.integers(-80, 20, shape))
+
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    a = rng.choice(bases, (B, h))
+    b = a[:, np.arange(nj) % h].copy()  # homologous, a quarter flipped
+    flip = rng.random((B, nj)) < 0.25
+    b[flip] = rng.choice(bases, int(flip.sum()))
+    return (t(a, np.uint8), t(b, np.uint8),
+            t(rng.integers(-60, 40, (B, h)), np.int32),
+            t(gaps((B, h)), np.int32),
+            t(rng.integers(-60, 40, (B, nj)), np.int32),
+            t(gaps((B, nj)), np.int32),
+            t(rng.integers(-60, 40, B), np.int32))
+
+
+@pytest.mark.parametrize("B,h,nj", [(1, 1, 1), (3, 300, 256), (17, 64, 129),
+                                    (4, 2049, 77), (2000, 8, 33)])
+def test_batched_fixed_kernel_matches_plain(cuda, B, h, nj):
+    args = fixed_inputs(B + h + nj, B, h, nj, cuda)
+    kw = dict(match=1, mismatch=-3, gap_open=3, gap_ext=2)
+    before = kernels.batched_strip_fixed_cuda.launches
+    got = wf.batched_strip_fixed(*args, **kw)
+    assert kernels.batched_strip_fixed_cuda.launches == before + 1
+    want = wf.batched_strip_fixed_plain(*args, **kw)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_batched_fixed_wrapper_rejects_bad_inputs(cuda):
+    args = list(fixed_inputs(1, 2, 10, 10, cuda))
+    kw = dict(match=1, mismatch=-3, gap_open=3, gap_ext=2)
+    with pytest.raises(ValueError, match="int32"):
+        kernels.batched_strip_fixed_cuda(*args[:2], args[2].long(),
+                                         *args[3:], **kw)
+    with pytest.raises(ValueError, match="on cpu"):
+        kernels.batched_strip_fixed_cuda(*args[:6], args[6].cpu(), **kw)
+
+
+@pytest.mark.parametrize("body", ["par", "ser", "mix", "dpx", "m16"])
+@pytest.mark.parametrize("iters", [0, 1, 257])
+def test_roofline_kernel_matches_plain(cuda, body, iters):
+    from masa_tpu_torch.tools import roofline as rl
+
+    xs = [torch.from_numpy(x).to(cuda) for x in rl.inputs(body)]
+    before = rl.run_cuda.launches
+    got = rl.run(body, xs, iters)
+    assert rl.run_cuda.launches == before + 1
+    assert torch.equal(got, rl.run_plain(body, xs, iters))

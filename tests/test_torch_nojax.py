@@ -71,6 +71,69 @@ def test_alignment_runs_with_jax_blocked():
     assert r.stdout.startswith("ok ")
 
 
+BLOCKED_CLI = r"""
+import runpy
+import sys
+
+class NoJax:
+    def find_spec(self, name, path=None, target=None):
+        if name == "jax" or name.startswith(("jax.", "jaxlib")):
+            raise ImportError(f"{name} is blocked in this test")
+
+sys.meta_path.insert(0, NoJax())
+sys.argv = ["masa_tpu_torch"] + sys.argv[1:]
+try:
+    runpy.run_module("masa_tpu_torch", run_name="__main__")
+finally:
+    assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules)
+"""
+
+
+def test_cli_runs_with_jax_blocked(tmp_path):
+    """``python -m masa_tpu_torch --device cpu a.fa b.fa`` with ``import
+    jax`` made to fail: the full persistent run prints masa_tpu's score
+    line (the oracle's score for the pair)."""
+    import numpy as np
+
+    from masa_tpu.ops import oracle
+
+    rng = np.random.default_rng(42)
+    s0 = rng.choice(np.frombuffer(b"ACGT", np.uint8), 1500)
+    s1 = s0.copy()
+    idx = rng.random(1500) < 0.08
+    s1[idx] = rng.choice(np.frombuffer(b"ACGT", np.uint8), int(idx.sum()))
+    for name, s in (("a.fa", s0), ("b.fa", s1)):
+        (tmp_path / name).write_bytes(b">" + name.encode() + b"\n"
+                                      + s.tobytes() + b"\n")
+    r = subprocess.run(
+        [sys.executable, "-c", BLOCKED_CLI, "--device", "cpu",
+         str(tmp_path / "a.fa"), str(tmp_path / "b.fa"),
+         "--work-dir", str(tmp_path / "w"), "--backend", "kernel"],
+        cwd=REPO, env=_env(), capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    best = oracle.dp_rows(s0, s1).best
+    assert f"alignment score: {best}  (matches=" in r.stdout, r.stdout
+
+
+def test_chip_smoke_imports_only_the_port():
+    """chip_smoke.py reaches the system through masa_tpu_torch alone:
+    no module of JAX or of the JAX package is imported by name."""
+    import ast
+
+    with open(os.path.join(REPO, "chip_smoke.py")) as fh:
+        tree = ast.parse(fh.read())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            names.add(node.module)
+    assert "masa_tpu_torch" in {n.split(".")[0] for n in names}
+    bad = {n for n in names if n.split(".")[0] in ("jax", "jaxlib",
+                                                   "masa_tpu")}
+    assert not bad, bad
+
+
 def _no_result(stdout: str) -> bool:
     for line in stdout.splitlines():
         try:

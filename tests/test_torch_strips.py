@@ -126,12 +126,12 @@ def test_stop_check_halts_after_a_strip():
     cfg = wf.StripConfig(rows=256)
     calls = []
 
-    def stop(out, rows_done, strip_rows):
-        calls.append((rows_done, strip_rows, tuple(out.best.tolist())))
+    def stop(out, rows_done, strip_rows, col_off):
+        calls.append((rows_done, strip_rows, col_off))
         return rows_done >= 512
 
     res = strips.run_partition(cfg, s0, s1, stop_check=stop)
-    assert [c[:2] for c in calls] == [(256, 256), (512, 256)]
+    assert calls == [(256, 256, 0), (512, 256, 0)]
     full = strips.run_partition(dataclasses.replace(cfg, rows=512),
                                 s0[:512], s1)
     assert (res.best, res.best_i, res.best_j) == (
