@@ -35,7 +35,17 @@ Phases (any failure raises and the run exits non-zero):
   6. `python -m masa_tpu_torch --test --device cuda` as a subprocess;
   7. the roofline tool (`masa_tpu_torch.tools.roofline.measure`), printed
      as its JSON line beside the strip kernel's rate on the stage-1
-     shape.
+     shape;
+  8. the column split (run after phase 4, beside the CLI run): first the
+     strip kernel on a streamed left border at a slab's shape, the border
+     written by the slab before it (kernel = plain, exact); then the 1M
+     pair through `--split 1,1 --ram-size 0 --disk-size 1G` and through
+     `--fork 2` (796634), real2 through `--split 1,2,1 --traceback
+     speculative` and through `parallel.split.align_oversize` with
+     16384-column slabs (32466), each with its seconds per stage and its
+     launches per kernel.
+The kernels line counts each kernel's launches over every main-path run
+(phases 5, 7 and 8; the fork workers report theirs).
 The last two lines are a JSON summary of the kernels and the contract
 line {"ok": true, "device": {...}}.  Without a CUDA device the script
 exits non-zero and prints no result.
@@ -485,6 +495,69 @@ def stage4_level(s0, s1, cps, dev):
     return err, ms, plain_ms
 
 
+def streamed_border(s0, s1, dev):
+    """Phase 2g: the strip kernel on a streamed left border at a slab's
+    shape: the first 8192 rows of the 1M pair against the columns of
+    ``--split 1,1``.  Slab 0 runs on the card (``run_part_stage1``) and
+    writes its last column to a file:// stream; slab 1 reads it as its
+    CUSTOM border, as the split does, and writes its own.  The kernel and
+    the plain version on slab 1's inputs (the border as read), timed; the
+    slab's best, last row, special rows and their column 0 equal the plain
+    version's.  Returns (max |diff|, ms, plain_ms)."""
+    import numpy as np
+    import torch
+
+    from masa_tpu_torch import InitType, ScoreParams
+    from masa_tpu_torch.ops import wavefront as wf
+    from masa_tpu_torch.parallel import split
+
+    h, flush = 8192, 2048
+    a = np.ascontiguousarray(s0[:h])
+    points = split.split_points(len(s1), [1.0, 1.0])
+    params = ScoreParams()
+    with tempfile.TemporaryDirectory() as tmp:
+        urls = split.auto_urls(tmp, 3)
+        split.run_part_stage1(a, s1, 0, points, params, flush_url=urls[0],
+                              buffered=False, device=dev)
+        p = split.run_part_stage1(a, s1, 1, points, params,
+                                  load_url=urls[0], flush_url=urls[1],
+                                  buffered=False, special_every=flush,
+                                  device=dev)
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(  # noqa: E731
+        x, np.int32)).to(dev)
+    slab = np.ascontiguousarray(s1[points[1]:points[2]])
+    bus_h, bus_f = wf.init_bus(InitType.WITH_ZEROES, len(slab),
+                               params.gap_open, params.gap_ext, dev)
+    args = (torch.from_numpy(a).to(dev), torch.from_numpy(slab).to(dev),
+            bus_h, bus_f, t(p.first_col[0][1:]), t(p.first_col[1][1:]), 0)
+    kw = dict(match=params.match, mismatch=params.mismatch,
+              gap_open=params.gap_open, gap_ext=params.gap_ext, sw=True,
+              track_best=True, store_lastcol=True, flush_every=flush)
+    timed(wf.strip, *args, **kw)  # warm
+    got, ms = timed(wf.strip, *args, **kw)
+    want, plain_ms = timed(wf.strip_plain, *args, **kw)
+    err = compare(got, want, f"streamed border {h} x {len(slab)}")
+    s, bi, bj = (int(v) for v in want.best.tolist())
+    if (p.best, p.best_i, p.best_j - p.j0) != (s, bi + 1, bj + 1):
+        raise AssertionError("streamed border: the slab's best differs")
+    if not np.array_equal(p.last_h, want.bus_h.cpu().numpy()):
+        raise AssertionError("streamed border: the slab's last row differs")
+    rows = p.specials.rows()
+    if rows != [flush * (k + 1) for k in range(len(want.rows_h))]:
+        raise AssertionError(f"streamed border: special rows {rows}")
+    for k, r in enumerate(rows):
+        hr, _ = p.specials.get(r)
+        if hr[0] != p.first_col[0][r] or not np.array_equal(
+                hr[1:], want.rows_h[k].cpu().numpy()):
+            raise AssertionError(f"streamed border: special row {r} differs")
+    log(f"streamed border: slab 1 of --split 1,1 at {h} x {len(slab)}, its "
+        f"border written by slab 0's launch: kernel {ms:.3f} ms "
+        f"({h * len(slab) / ms / 1e6:.2f} GCUPS), plain {plain_ms:.3f} ms, "
+        f"max |diff| {err}; the slab's best, last row and {len(rows)} "
+        f"special rows equal")
+    return err, ms, plain_ms
+
+
 def golden_pairs():
     """Phase 3: the frozen real-genomic scores through align()."""
     import masa_tpu_torch
@@ -590,46 +663,56 @@ def write_fasta(path, desc, seq):
             fh.write(seq[k:k + 70].tobytes() + b"\n")
 
 
-def cli_run(s0, s1):
-    """Phase 5: the pair through the CLI in-process: --stage-1, then the
-    full run resuming it.  Returns the strip launches of the first call,
-    the batched launches of the second, and its stage-3 crosspoints (the
-    stage-2 bands: stage 3 passes them through on the card)."""
+def run_cli(argv, quiet=("stage1: ... flushed",)):
+    """``masa_tpu_torch.cli.main(argv)`` in-process with the kernel counts
+    set to 0 just before: its stdout (echoed, less the lines starting with
+    ``quiet``), seconds and strip/batched launches.  A non-zero exit
+    raises."""
     from masa_tpu_torch import cli
-    from masa_tpu_torch.core.job import CrosspointsFile
     from masa_tpu_torch.ops import kernels
 
     counters = {"strip": kernels.strip_cuda,
                 "batched_strip": kernels.batched_strip_cuda}
-    with tempfile.TemporaryDirectory() as tmp:
-        fa, fb = os.path.join(tmp, "a.fa"), os.path.join(tmp, "b.fa")
-        write_fasta(fa, "bench s0", s0)
-        write_fasta(fb, "bench s1", s1)
-        # every special row on disk (a crash-safe run), 1 GiB of them
-        argv = [fa, fb, "--work-dir", os.path.join(tmp, "w"),
-                "--ram-size", "0", "--disk-size", "1G"]
-        outs, launches, secs = [], [], []
-        for extra in (["--stage-1"], []):
-            for c in counters.values():
-                c.launches = 0
-            buf = io.StringIO()
-            t0 = time.time()
-            with contextlib.redirect_stdout(buf):
-                rc = cli.main(argv + extra)
-            secs.append(time.time() - t0)
-            out = buf.getvalue()
-            for line in out.splitlines():
-                if not line.startswith("stage1: ... flushed"):
-                    log(f"  cli> {line}")
-            if rc != 0:
-                raise AssertionError(f"the CLI exited {rc}")
-            outs.append(out)
-            launches.append({k: c.launches for k, c in counters.items()})
-        with open(os.path.join(tmp, "w", "statistics_01.00")) as fh:
-            pruned = re.search(r"pruned_cells: (\d+)", fh.read()).group(1)
-        cps3 = CrosspointsFile(os.path.join(tmp, "w", "crosspoints",
-                                            "crosspoint_03.00")).load()
-    first, second = outs
+    for c in counters.values():
+        c.launches = 0
+    buf = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    secs = time.time() - t0
+    out = buf.getvalue()
+    for line in out.splitlines():
+        if not line.startswith(quiet):
+            log(f"  cli> {line}")
+    if rc != 0:
+        raise AssertionError(f"the CLI exited {rc}")
+    return out, secs, {k: c.launches for k, c in counters.items()}
+
+
+def stage_seconds(out):
+    """The CLI's per-stage seconds, from its ``stageN: ... in X.XXs``
+    lines."""
+    return {f"stage{k}": float(v) for k, v in re.findall(
+        r"^stage(\d): .* in ([\d.]+)s", out, re.M)}
+
+
+def cli_run(fa, fb, tmp):
+    """Phase 5: the pair through the CLI in-process: --stage-1, then the
+    full run resuming it.  Returns the strip launches of the first call,
+    the batched launches of the second, and its stage-3 crosspoints (the
+    stage-2 bands: stage 3 passes them through on the card)."""
+    from masa_tpu_torch.core.job import CrosspointsFile
+
+    # every special row on disk (a crash-safe run), 1 GiB of them
+    work = os.path.join(tmp, "w")
+    argv = [fa, fb, "--work-dir", work, "--ram-size", "0", "--disk-size",
+            "1G"]
+    first, secs0, launches0 = run_cli(argv + ["--stage-1"])
+    second, secs1, launches1 = run_cli(argv)
+    with open(os.path.join(work, "statistics_01.00")) as fh:
+        pruned = re.search(r"pruned_cells: (\d+)", fh.read()).group(1)
+    cps3 = CrosspointsFile(os.path.join(work, "crosspoints",
+                                        "crosspoint_03.00")).load()
     if f"best score: {SCORE_1M} at" not in first:
         raise AssertionError(f"the CLI's stage 1 did not find {SCORE_1M}")
     for want in ("stage1: already executed (resume)",
@@ -637,20 +720,102 @@ def cli_run(s0, s1):
                  f"alignment score: {SCORE_1M}  (matches="):
         if want not in second:
             raise AssertionError(f"the CLI's second run lacks {want!r}")
-    stage_s = {f"stage{k}": float(v) for k, v in re.findall(
-        r"^stage(\d): .* in ([\d.]+)s", first + second, re.M)}
-    log(f"CLI 1M pair: --stage-1 call {secs[0]:.2f} s, resumed full call "
-        f"{secs[1]:.2f} s; per stage " + json.dumps(stage_s)
-        + f"; pruned_cells {pruned}; strip launches {launches[0]['strip']}"
-        f" (first call), batched launches {launches[1]['batched_strip']}"
+    log(f"CLI 1M pair: --stage-1 call {secs0:.2f} s, resumed full call "
+        f"{secs1:.2f} s; per stage " + json.dumps(stage_seconds(
+            first + second))
+        + f"; pruned_cells {pruned}; strip launches {launches0['strip']}"
+        f" (first call), batched launches {launches1['batched_strip']}"
         f" (second call)")
-    if launches[0]["strip"] <= 0:
+    if launches0["strip"] <= 0:
         raise AssertionError("the CLI's stage 1 launched no strip kernel")
-    if launches[1]["batched_strip"] <= 0:
+    if launches1["batched_strip"] <= 0:
         raise AssertionError("the CLI's traceback launched no batched "
                              "strip kernel")
-    return {"strip": launches[0]["strip"],
-            "batched_strip": launches[1]["batched_strip"]}, cps3
+    return {"strip": launches0["strip"],
+            "batched_strip": launches1["batched_strip"]}, cps3
+
+
+def need_launches(what, launches, names=("strip", "batched_strip")):
+    for k in names:
+        if launches[k] <= 0:
+            raise AssertionError(f"{what} launched no {k} kernel")
+
+
+def split_cli(fa, fb, tmp, score, extra, what):
+    """Phases 8 and 10: the weighted column split through the CLI
+    (``--split W1,..,Wn``): slab stage 1 one after another with file://
+    border handoff, the slab traceback, stages 3-6.  The score line, stage
+    5 verified, per-stage seconds and launches."""
+    argv = [fa, fb, "--work-dir", os.path.join(tmp, "w"), *extra]
+    out, secs, launches = run_cli(argv, quiet=())
+    for want in (f"stage5: score={score} verified",
+                 f"alignment score: {score}  (weighted column split"):
+        if want not in out:
+            raise AssertionError(f"{what} lacks {want!r}")
+    log(f"{what}: score {score} in {secs:.2f} s; per stage "
+        + json.dumps(stage_seconds(out)) + "; launches "
+        + json.dumps(launches))
+    need_launches(what, launches)
+    return launches
+
+
+def fork_cli(fa, fb, tmp):
+    """Phase 9: ``--fork 2`` through the CLI on the 1M pair: two worker
+    processes on the one card, the border over a localhost socket, the
+    pool's score and crosspoint relay; node 0 runs stages 5 and 6.  Each
+    worker's seconds per stage and launches come from its worker.KK.json
+    (counted in the worker, where the kernels launch)."""
+    work = os.path.join(tmp, "w")
+    out, secs, _ = run_cli([fa, fb, "--work-dir", work, "--fork", "2"],
+                           quiet=())
+    if f"alignment score: {SCORE_1M}  (2 forked processes" not in out:
+        raise AssertionError(f"--fork 2 did not score {SCORE_1M}")
+    launches = {"strip": 0, "batched_strip": 0}
+    for k in range(2):
+        with open(os.path.join(work, "shared", f"worker.{k:02d}.json")) as fh:
+            w = json.load(fh)
+        log(f"  fork worker {k} on {w['device']}, columns {w['columns']}, "
+            f"special rows every {w['special_every']}: seconds "
+            + json.dumps({n: round(v, 3) for n, v in w["seconds"].items()})
+            + "; launches " + json.dumps(w["launches"]))
+        if w["launches"]["strip"] <= 0:
+            raise AssertionError(f"fork worker {k} launched no strip kernel")
+        for n in launches:
+            launches[n] += w["launches"][n]
+    log(f"--fork 2 1M pair: score {SCORE_1M} in {secs:.2f} s; launches "
+        + json.dumps(launches))
+    need_launches("--fork 2", launches)
+    return launches
+
+
+def oversize_real2(tmp):
+    """Phase 11: real2 through ``parallel.split.align_oversize`` with
+    16384-column slabs (the CLI's branch for a seq1 wider than one run
+    may be): score 32466, stage 6 re-scored, per-stage seconds and
+    launches."""
+    import masa_tpu_torch
+    from masa_tpu_torch.ops import kernels
+    from masa_tpu_torch.parallel import split
+
+    g = os.path.join(REPO, "tests", "golden")
+    a, b = (masa_tpu_torch.load_sequence(os.path.join(g, f"real2_{x}.fa"))
+            for x in "ab")
+    counters = {"strip": kernels.strip_cuda,
+                "batched_strip": kernels.batched_strip_cuda}
+    for c in counters.values():
+        c.launches = 0
+    secs = {}
+    best, aln = split.align_oversize(
+        a, b, 16384, tmp, device="cuda",
+        on_stage=lambda name, s, _: secs.__setitem__(name, round(s, 3)))
+    launches = {k: c.launches for k, c in counters.items()}
+    log(f"real2 oversize ({len(a)} x {len(b)}, 16384-column slabs): best "
+        f"{best}, score {aln.raw_score}; per stage " + json.dumps(secs)
+        + "; launches " + json.dumps(launches))
+    if best != 32466 or aln.raw_score != 32466:
+        raise AssertionError("real2 through align_oversize: expected 32466")
+    need_launches("align_oversize", launches, ("strip",))
+    return launches
 
 
 def module_entry():
@@ -719,6 +884,7 @@ def main() -> int:
         print(f"chip_smoke: masa_tpu_torch not found beside chip_smoke.py "
               f"({e}); run it from the root of a checkout", file=sys.stderr)
         return 2
+    t_start = time.time()
     dev = torch.device("cuda")
     card = card_line()
     log(f"card: {card}")
@@ -737,14 +903,38 @@ def main() -> int:
     golden_pairs()
     s0, s1 = bench_pair()
     log(f"1M pair: {len(s0)} x {len(s1)}")
+    err_sb, _, _ = streamed_border(s0, s1, dev)
+    err["strip"] = max(err["strip"], err_sb)
     full_run(s0, s1)
-    launches, cps3 = cli_run(s0, s1)
-    err_lvl, ms, plain_ms = stage4_level(s0, s1, cps3, dev)
-    err["batched_strip"] = max(err["batched_strip"], err_lvl)
-    times["batched_strip"] = (ms, plain_ms)
+    g = os.path.join(REPO, "tests", "golden")
+    with tempfile.TemporaryDirectory() as tmp:
+        fa, fb = os.path.join(tmp, "a.fa"), os.path.join(tmp, "b.fa")
+        write_fasta(fa, "bench s0", s0)
+        write_fasta(fb, "bench s1", s1)
+        launches, cps3 = cli_run(fa, fb, os.path.join(tmp, "cli"))
+        err_lvl, ms, plain_ms = stage4_level(s0, s1, cps3, dev)
+        err["batched_strip"] = max(err["batched_strip"], err_lvl)
+        times["batched_strip"] = (ms, plain_ms)
+        more = [
+            split_cli(fa, fb, os.path.join(tmp, "split"), SCORE_1M,
+                      ["--split", "1,1", "--ram-size", "0", "--disk-size",
+                       "1G"], "--split 1,1 1M pair"),
+            fork_cli(fa, fb, os.path.join(tmp, "fork")),
+            split_cli(os.path.join(g, "real2_a.fa"),
+                      os.path.join(g, "real2_b.fa"), os.path.join(tmp, "r2"),
+                      32466, ["--split", "1,2,1", "--traceback",
+                              "speculative"],
+                      "real2 --split 1,2,1 --traceback speculative"),
+            oversize_real2(tmp),
+        ]
+    for m in more:
+        for k in launches:
+            launches[k] += m[k]
     module_entry()
     launches["batched_strip_fixed"] = n_fixed
     launches["roofline"] = roofline_phase(dev)
+    log(f"chip_smoke: every phase passed in {time.time() - t_start:.1f} s, "
+        f"builds included")
     log(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": src, "replaces": tpu,
         "launches": launches[name], "max_abs_err": err[name],

@@ -20,8 +20,8 @@ directory's files) is masa_tpu's own, imported, never JAX.
 
 from masa_tpu.types import AlignmentStart, InitType, Recurrence, ScoreParams
 
-__all__ = ["align", "AlignmentStart", "InitType", "Recurrence",
-           "ScoreParams"]
+__all__ = ["align", "load_sequence", "AlignmentStart", "InitType",
+           "Recurrence", "ScoreParams"]
 
 
 def align(seq0, seq1, *, alignment_start="*", alignment_end=None,
@@ -35,28 +35,8 @@ def align(seq0, seq1, *, alignment_start="*", alignment_end=None,
     '1'/'2'/'+' semi-global.  ``device``: "cuda" (default; raises when no
     GPU is present) or "cpu".  Returns a ``biology.alignment.Alignment``.
     """
-    import os
-
-    import numpy as np
-
-    from masa_tpu.models.scoring import encode_sequence
     from masa_tpu_torch.stages import pipeline
     from masa_tpu_torch.utils.devices import resolve_device
-
-    def load(x):
-        if isinstance(x, str) and "\n" not in x:
-            path_like = (x.endswith((".fa", ".fasta", ".fna"))
-                         or os.sep in x)
-            if os.path.exists(x):
-                from masa_tpu.biology.sequence import Sequence
-
-                return Sequence.from_file(x).data()
-            if path_like:
-                # never silently align a pathname's bytes
-                raise FileNotFoundError(x)
-        if isinstance(x, np.ndarray):
-            return np.asarray(x, np.uint8)
-        return encode_sequence(x)
 
     starts = {"*": AlignmentStart.ANYWHERE,
               "1": AlignmentStart.SEQUENCE_1,
@@ -71,4 +51,28 @@ def align(seq0, seq1, *, alignment_start="*", alignment_end=None,
         max_cells_stage5=max_cells_stage5,
         device=str(resolve_device(device)),
     )
-    return pipeline.align_pair(load(seq0), load(seq1), pcfg)
+    return pipeline.align_pair(load_sequence(seq0), load_sequence(seq1),
+                               pcfg)
+
+
+def load_sequence(x):
+    """A sequence as the uint8 array the pipeline takes: a FASTA file
+    path, bytes/str of bases, or an array."""
+    import os
+
+    import numpy as np
+
+    from masa_tpu.models.scoring import encode_sequence
+
+    if isinstance(x, str) and "\n" not in x:
+        path_like = x.endswith((".fa", ".fasta", ".fna")) or os.sep in x
+        if os.path.exists(x):
+            from masa_tpu.biology.sequence import Sequence
+
+            return Sequence.from_file(x).data()
+        if path_like:
+            # never silently align a pathname's bytes
+            raise FileNotFoundError(x)
+    if isinstance(x, np.ndarray):
+        return np.asarray(x, np.uint8)
+    return encode_sequence(x)

@@ -6,10 +6,11 @@ Usage:  python -m masa_tpu_torch [options] seq0.fasta seq1.fasta
 The options, the work directory and the printed lines are masa_tpu's.
 PyTorch has no platform switch in its environment, so the device is an
 option: ``--device cuda`` (the default; raises when no GPU is present) or
-``--device cpu``.  The multi-device modes (``--split``, ``--fork``,
-``--coordinator``) and the column split of oversize inputs are not ported
-yet (ROADMAP Queue 1 item 9): they stop with an error, never running on
-one device instead.
+``--device cpu``.  The column-split modes run on it: weighted slabs
+(``--split W1,..,Wn``), one worker process per slab (``--fork``), and the
+split of inputs wider than one run may be.  The sharded mode (``--split
+N``, ``--coordinator``) is not ported yet (ROADMAP Queue 1 item 10): it
+stops with an error, never running on one device instead.
 """
 
 from __future__ import annotations
@@ -24,8 +25,9 @@ from masa_tpu.core.capabilities import AlignerCapabilities
 from masa_tpu.types import ScoreParams
 
 HEADER = "masa_tpu_torch: long-sequence alignment engine on PyTorch/CUDA"
-NOT_PORTED = ("is not ported to masa_tpu_torch yet (ROADMAP Queue 1 item 9, "
-              "multi-device); use masa_tpu for it")
+NOT_PORTED = ("is not ported to masa_tpu_torch yet (ROADMAP Queue 1 item 10, "
+              "the sharded mode over torch.distributed); use masa_tpu for "
+              "it")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -91,10 +93,26 @@ def build_parser() -> argparse.ArgumentParser:
                         "the strip engine for every pass; auto: the strip "
                         "engine on a GPU, masa_tpu's size gates on the "
                         "CPU")
-    # multi-device (not ported: each stops with an error)
-    p.add_argument("--split", default="0", help="not ported")
-    p.add_argument("--fork", default=None, help="not ported")
-    p.add_argument("--coordinator", default=None, help="not ported")
+    # multi-device
+    p.add_argument("--split", default="0",
+                   help="W1,..,Wn: stage 1 over weighted column slabs, one "
+                        "after another on --device; N (the sharded mode) "
+                        "is not ported")
+    p.add_argument("--fork", default=None,
+                   help="N or W1,..,Wn: one worker process per weighted "
+                        "column slab, wired by localhost sockets and the "
+                        "shared-dir pool (fork_multi_process, "
+                        "libmasa.cpp:540-642)")
+    p.add_argument("--traceback", default="pipelined",
+                   choices=["pipelined", "speculative"],
+                   help="stage-2 strategy of --split/--fork: pipelined "
+                        "right-to-left slab marching or speculative "
+                        "per-slab prediction (libmasa.cpp:698-757)")
+    p.add_argument("--coordinator", default=None,
+                   help="host:port of process 0 of a multi-host sharded "
+                        "run (not ported)")
+    p.add_argument("--num-hosts", type=int, default=1)
+    p.add_argument("--host-id", type=int, default=0)
     p.add_argument("--test", action="store_true",
                    help="run a built-in self-check (pipeline vs oracle on "
                         "a random pair) on --device and exit")
@@ -125,12 +143,25 @@ def main(argv=None) -> int:
         return 0
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.split != "0":
-        parser.error(f"--split {NOT_PORTED}")
+    # --split N shards over N devices; --split W1,..,Wn gives weighted
+    # column slabs (the reference's fork-weight syntax, libmasa.cpp:497)
+    try:
+        split_weights = [float(x) for x in str(args.split).split(",")]
+    except ValueError:
+        parser.error(f"--split: expected N or W1,..,Wn, got {args.split!r}")
+    fork_weights = None
     if args.fork:
-        parser.error(f"--fork {NOT_PORTED}")
+        try:
+            fork_weights = [float(x) for x in str(args.fork).split(",")]
+        except ValueError:
+            parser.error(f"--fork: expected N or W1,..,Wn, "
+                         f"got {args.fork!r}")
+        if len(fork_weights) == 1:
+            fork_weights = [1.0] * int(fork_weights[0])
     if args.coordinator:
         parser.error(f"--coordinator {NOT_PORTED}")
+    if not fork_weights and len(split_weights) == 1 and split_weights[0]:
+        parser.error(f"--split N {NOT_PORTED}")
     print(HEADER)
 
     from masa_tpu.biology.sequence import Sequence, SequenceModifiers
@@ -154,9 +185,6 @@ def main(argv=None) -> int:
     seq1 = seqs[1].data()
     print(f"seq0: {seqs[0].info.description} ({len(seq0)} bp)")
     print(f"seq1: {seqs[1].info.description} ({len(seq1)} bp)")
-    if len(seq1) > AlignerCapabilities().maximum_seq1_len:
-        parser.error(f"seq1 needs the column split of oversize inputs, "
-                     f"which {NOT_PORTED}")
 
     jcfg = JobConfig(
         work_dir=args.work_dir,
@@ -184,16 +212,145 @@ def main(argv=None) -> int:
               seqs[1].info.hash or str(len(seq1)), device=args.device)
 
     log = print if args.verbose else (lambda *a, **k: None)
+    fmt = args.output_format if args.output_format != "binary" else "text"
+    local = args.alignment_start == "*" and args.alignment_end is None
+    caps = AlignerCapabilities()
+    column_split = (fork_weights or len(split_weights) > 1
+                    or len(seq1) > caps.maximum_seq1_len)
+    if column_split and not local:
+        parser.error("--fork, weighted --split and inputs wider than "
+                     f"{caps.maximum_seq1_len} bp (the column split) only "
+                     "support local alignment (--alignment-start '*' and "
+                     "no --alignment-end)")
+    if (fork_weights or len(split_weights) > 1) and args.backend == "numpy":
+        print("warning: --backend numpy has no streamed-border path; "
+              "--fork and weighted --split run the strip engine",
+              file=sys.stderr)
+    if fork_weights:
+        return _fork(args, job, seq0, seq1, fork_weights, fmt)
+    if len(split_weights) > 1:
+        return _weighted_split(args, job, seq0, seq1, split_weights, fmt,
+                               log)
+    if len(seq1) > caps.maximum_seq1_len:
+        from masa_tpu_torch.parallel.split import align_oversize
+
+        # chained column slabs with file:// border handoff
+        # (sw_stage1.cpp:362-375 ni x nj splitting)
+        log(f"seq1 exceeds per-run capability "
+            f"({caps.maximum_seq1_len} bp): splitting columns")
+        _, aln = align_oversize(
+            seq0, seq1, caps.maximum_seq1_len, jcfg.work_dir, params,
+            backend="kernel" if args.backend == "auto" else args.backend,
+            max_cells_stage5=jcfg.stage5_max_cells, device=job.device,
+            limit=jcfg.ram_limit)
+        runner.finish_alignment(job, seq0, seq1, aln, fmt=fmt, log=log)
+        print(f"alignment score: {aln.raw_score}  "
+              f"(matches={aln.matches} mismatches={aln.mismatches} "
+              f"gaps={aln.gap_opens}/{aln.gap_extensions})")
+        return 0
+
     best = runner.stage1(job, seq0, seq1, log=log)
     if args.stage_1 or args.no_flush:
         b = best.best
         print(f"best score: {b.score} at ({b.i},{b.j})")
         return 0
 
-    fmt = args.output_format if args.output_format != "binary" else "text"
     aln = runner.execute_traceback(job, seq0, seq1, seqs, fmt=fmt, log=log)
     print(f"alignment score: {aln.raw_score}  "
           f"(matches={aln.matches} mismatches={aln.mismatches} "
+          f"gaps={aln.gap_opens}/{aln.gap_extensions})")
+    return 0
+
+
+def _fork(args, job, seq0, seq1, weights, fmt) -> int:
+    """--fork: one worker process per weighted slab on job.device."""
+    from masa_tpu_torch.parallel.fork import run_fork
+
+    res = run_fork(seq0, seq1, weights, job.cfg.work_dir, job.cfg.params,
+                   max_partition=args.maximum_partition, device=job.device,
+                   traceback=args.traceback, output_format=fmt,
+                   ram_limit=job.cfg.ram_limit,
+                   max_cells_stage5=job.cfg.stage5_max_cells)
+    print(f"alignment score: {res['score']}  "
+          f"({len(weights)} forked processes; matches={res['matches']} "
+          f"mismatches={res['mismatches']} "
+          f"gaps={res['gap_opens']}/{res['gap_extensions']})")
+    return 0
+
+
+def _weighted_split(args, job, seq0, seq1, weights, fmt, log) -> int:
+    """--split W1,..,Wn: the weighted slabs one after another on
+    job.device with file:// border handoff, then the split traceback
+    (--traceback) and stages 3-6 with the work directory's artifacts."""
+    import time
+
+    import torch
+
+    from masa_tpu_torch.ops import myers_miller as mm
+    from masa_tpu_torch.parallel import split
+    from masa_tpu_torch.stages import core, pipeline, runner
+
+    params, dev = job.cfg.params, job.device
+    m, n = len(seq0), len(seq1)
+    points = split.split_points(n, weights)
+    urls = split.auto_urls(job.cfg.work_dir, len(weights))
+    score_only = args.stage_1 or args.no_flush
+    iv = 0 if score_only else job.calculate_flush_intervals(
+        m, n, align_to=pipeline.FLUSH_GRAIN)[0]
+    widths = [b - a for a, b in zip(points, points[1:])]
+    secs = {}
+    t = time.perf_counter()
+
+    def lap(name):
+        nonlocal t
+        if torch.device(dev).type == "cuda":
+            torch.cuda.synchronize(dev)
+        now = time.perf_counter()
+        secs[name] = now - t
+        t = now
+        return secs[name]
+
+    parts = [split.run_part_stage1(
+        seq0, seq1, k, points, params, core.default_config(dev),
+        load_url=urls[k - 1] if k > 0 else None,
+        flush_url=urls[k] if k < len(weights) - 1 else None,
+        buffered=False, special_every=iv, device=dev,
+    ) for k in range(len(weights))]
+    b = max(p.best for p in parts)
+    if score_only:
+        print(f"stage1 (weighted column split {widths}): best={b}")
+        return 0
+    log(f"stage1: weighted column split {widths}, special rows every {iv}: "
+        f"best={b} in {lap('stage1'):.2f}s")
+    # the strip engine for every pass, as masa_tpu's kernel backends
+    if args.traceback == "speculative":
+        cps, reused = split.speculative_traceback(
+            seq0, seq1, parts, params, backend="kernel", device=dev)
+    else:
+        cps, reused = split.pipelined_traceback(
+            seq0, seq1, parts, params, backend="kernel", device=dev), 0
+    log(f"stage2: {len(cps)} crosspoints ({args.traceback}, {reused} "
+        f"reused) in {lap('stage2'):.2f}s")
+    pcfg = pipeline.PipelineConfig(
+        params=params, max_cells_stage5=job.cfg.stage5_max_cells,
+        device=dev)
+    cps = pipeline.stage3_densify(
+        seq0, seq1, pcfg, cps,
+        max_cells=split.densify_limit(args.maximum_partition, dev))
+    log(f"stage3: {len(cps)} crosspoints in {lap('stage3'):.2f}s")
+    if args.maximum_partition:
+        cps = mm.stage4_reduce(seq0, seq1, cps, params,
+                               args.maximum_partition,
+                               stage5_max_cells=job.cfg.stage5_max_cells,
+                               device=dev)
+    log(f"stage4: {len(cps)} crosspoints in {lap('stage4'):.2f}s")
+    aln = pipeline.stage5_emit(seq0, seq1, pcfg, cps)
+    log(f"stage5: score={aln.raw_score} verified in {lap('stage5'):.2f}s")
+    runner.finish_alignment(job, seq0, seq1, aln, cps=cps, fmt=fmt,
+                            log=log, elapsed=secs)
+    print(f"alignment score: {aln.raw_score}  "
+          f"(weighted column split {widths}; "
+          f"matches={aln.matches} mismatches={aln.mismatches} "
           f"gaps={aln.gap_opens}/{aln.gap_extensions})")
     return 0
 

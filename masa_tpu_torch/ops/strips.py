@@ -4,7 +4,8 @@ the borders, the best score and the special rows.
 Counterpart of ``masa_tpu/ops/strips.py:run_partition`` with what the main
 path uses: the strip loop with its bus carry, special rows at any cadence
 (flushed inside the strip by the kernel), the best fold, the last row and
-column, the goal stop, block pruning and the blocks sink.  Strips run at
+column, the goal stop, block pruning, the blocks sink, and the streamed
+left border and last column of the column-split modes.  Strips run at
 their true height, so ``pad_rows`` needs no sentinel rows here.
 
 Block pruning (SW with best tracking, ``core/pruning``): before each strip
@@ -104,6 +105,8 @@ def run_partition(
     pad_rows: bool = False,
     blocks_sink: Callable | None = None,
     want_last_row: bool = True,
+    first_col_reader=None,
+    lastcol_writer=None,
 ) -> PartitionResult:
     """Align one partition.  ``seq0``/``seq1`` are uint8 tensors or numpy
     arrays (which stay on the CPU); the strips run where ``seq1`` lies.
@@ -120,13 +123,24 @@ def run_partition(
     column).  ``blocks_sink(rows_done, chunk_maxima)`` receives the bus's
     per-chunk maxima after every strip.  ``pad_rows`` (score-only callers)
     drops the last-row output, as in masa_tpu; the tail strip still runs
-    at its true height."""
+    at its true height.
+
+    ``first_col_reader`` (``masa_tpu.io.cells`` reader) streams the left
+    border of a column slab: each strip reads its rows' (H, E) from it, and
+    its corner is the last H read before it (``row_h[0]`` for the first).
+    Those border cells belong to the slab on the left, so they do not seed
+    the best.  ``lastcol_writer`` receives each strip's last column as
+    int32 (H, E); it needs ``cfg.store_lastcol``."""
     seq1 = _as_chars(seq1)
     seq0 = _as_chars(seq0).to(seq1.device)
     dev = seq1.device
     m, nj = seq0.numel(), seq1.numel()
     if nj < 1:
         raise ValueError("a partition needs at least one column")
+    if first_col_reader is not None and pad_rows:
+        raise ValueError("streamed borders need exact strip heights")
+    if lastcol_writer is not None and not cfg.store_lastcol:
+        raise ValueError("lastcol_writer needs cfg.store_lastcol")
     go, ge = params.gap_open, params.gap_ext
     sw = cfg.recurrence == Recurrence.SMITH_WATERMAN
     prune = prune and cfg.track_best and sw and not cfg.store_lastcol
@@ -148,9 +162,10 @@ def run_partition(
         # border cells are part of the matrix (the kernel tracks interior
         # cells only), for NW too (nw_best endpoint selection)
         best, best_j = int(row_h.max()), int(np.argmax(row_h))
-        ch0, _ = _border_vec(col_init, params, m + 1, 0, first_col)
-        if int(ch0.max()) > best:
-            best, best_i, best_j = int(ch0.max()), int(np.argmax(ch0)), 0
+        if first_col_reader is None:
+            ch0, _ = _border_vec(col_init, params, m + 1, 0, first_col)
+            if int(ch0.max()) > best:
+                best, best_i, best_j = int(ch0.max()), int(np.argmax(ch0)), 0
     dev_best = torch.tensor([best, best_i, best_j], dtype=torch.int64,
                             device=dev)
 
@@ -173,20 +188,30 @@ def run_partition(
     def neg(*shape):
         return torch.full(shape, NEG, dtype=torch.int32, device=dev)
 
+    def host_col(ich, ice):
+        return (torch.from_numpy(np.ascontiguousarray(ich, np.int32)).to(dev),
+                torch.from_numpy(np.ascontiguousarray(ice, np.int32)).to(dev))
+
     cells = pruned_cells = 0
+    stream_corner = int(row_h[0])  # H(i0, 0) carried between border reads
     i0 = 0
     while i0 < m:
         hs = min(R, m - i0)
         n_int = (hs - 1) // special_every if special_every else 0
-        if col_init == InitType.CUSTOM:
-            ich, ice = _border_vec(col_init, params, hs, i0 + 1, first_col)
-            c_h = torch.from_numpy(np.ascontiguousarray(ich)).to(dev)
-            c_e = torch.from_numpy(np.ascontiguousarray(ice)).to(dev)
+        if first_col_reader is not None:
+            ich, ice = first_col_reader.read(hs)
+            c_h, c_e = host_col(ich, ice)
+            corner, stream_corner = stream_corner, int(ich[-1])
+        elif col_init == InitType.CUSTOM:
+            c_h, c_e = host_col(*_border_vec(col_init, params, hs, i0 + 1,
+                                             first_col))
         else:
             k = torch.arange(i0 + 1, i0 + 1 + hs, device=dev)
             c_h = wf.border_h(col_init, k, go, ge)
             c_e = neg(hs)
-        corner = int(_border_vec(col_init, params, 1, i0, first_col)[0][0])
+        if first_col_reader is None:
+            corner = int(_border_vec(col_init, params, 1, i0,
+                                     first_col)[0][0])
 
         wl, wr = 0, nj  # the strip's column window
         if prune:
@@ -235,8 +260,12 @@ def run_partition(
             if s > best:
                 best, best_i, best_j = s, i0 + bi + 1, wl + bj + 1
         if cfg.store_lastcol:
-            col_h[i0 + 1:i0 + 1 + hs] = out.lastcol_h.cpu().numpy()
-            col_e[i0 + 1:i0 + 1 + hs] = out.lastcol_e.cpu().numpy()
+            lch = out.lastcol_h.cpu().numpy()
+            lce = out.lastcol_e.cpu().numpy()
+            col_h[i0 + 1:i0 + 1 + hs] = lch
+            col_e[i0 + 1:i0 + 1 + hs] = lce
+            if lastcol_writer is not None:
+                lastcol_writer.write(lch, lce)
 
         i0 += hs
         if blocks_sink is not None:
@@ -252,7 +281,8 @@ def run_partition(
     if want_last_row and not pad_rows:
         last_h = np.empty(nj + 1, np.int64)
         last_f = np.empty(nj + 1, np.int64)
-        last_h[0] = _border_vec(col_init, params, 1, i0, first_col)[0][0]
+        last_h[0] = (stream_corner if first_col_reader is not None else
+                     _border_vec(col_init, params, 1, i0, first_col)[0][0])
         last_f[0] = -INF
         last_h[1:] = bus_h.cpu().numpy()
         last_f[1:] = bus_f.cpu().numpy()

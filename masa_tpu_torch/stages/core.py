@@ -63,6 +63,13 @@ class SpecialRowStore:
         for r in [r for r in self._rows if r > i]:
             del self._rows[r]
 
+    def copy(self) -> "SpecialRowStore":
+        """A store of the same rows (shared, never written), so truncating
+        one store leaves the other whole."""
+        out = SpecialRowStore()
+        out._rows = dict(self._rows)
+        return out
+
     def __len__(self):
         return len(self._rows)
 

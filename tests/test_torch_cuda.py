@@ -123,6 +123,48 @@ def test_multi_wave_sampled_intervals(cuda):
         assert torch.equal(last_e[lo:hi], ref.lastcol_e), g
 
 
+def test_streamed_border_kernel_matches_plain(cuda, tmp_path):
+    """The middle of three slabs on the card: its left border is the last
+    column the first slab's launch wrote (file://), and it writes its own.
+    The kernel equals the plain version on those inputs, and the slab's
+    best, last row and written column are the plain version's."""
+    from masa_tpu.io import cells as cio
+    from masa_tpu_torch.parallel import split
+
+    rng = np.random.default_rng(31)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    m = 5000
+    s0 = rng.choice(bases, m).astype(np.uint8)
+    s1 = np.resize(s0, 2100).copy()
+    flip = rng.random(2100) < 0.2
+    s1[flip] = rng.choice(bases, int(flip.sum()))
+    points = split.split_points(len(s1), [1.0] * 3)
+    urls = split.auto_urls(str(tmp_path), 3)
+    before = kernels.strip_cuda.launches
+    parts = [split.run_part_stage1(
+        s0, s1, k, points, load_url=urls[k - 1] if k else None,
+        flush_url=urls[k] if k < 2 else None, buffered=False,
+        special_every=1024, device=cuda) for k in range(3)]
+    assert kernels.strip_cuda.launches == before + 3  # a launch per slab
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(cuda)  # noqa
+    col_h, col_e = cio.FileCellsReader(urls[0][7:]).read(m)
+    slab = s1[points[1]:points[2]]
+    bus_h, bus_f = wf.init_bus(InitType.WITH_ZEROES, len(slab), 3, 2, cuda)
+    args = (t(s0), t(slab), bus_h, bus_f, t(col_h), t(col_e), 0)
+    kw = dict(match=1, mismatch=-3, gap_open=3, gap_ext=2, sw=True,
+              track_best=True, store_lastcol=True, flush_every=1024)
+    want = wf.strip_plain(*args, **kw)
+    assert_equal(wf.strip(*args, **kw), want)
+    p = parts[1]
+    np.testing.assert_array_equal(p.last_h, want.bus_h.cpu().numpy())
+    wrote_h, _ = cio.FileCellsReader(urls[1][7:]).read(m)
+    np.testing.assert_array_equal(wrote_h, want.lastcol_h.cpu().numpy())
+    s, bi, bj = (int(v) for v in want.best.tolist())
+    assert (p.best, p.best_i, p.best_j - p.j0) == (s, bi + 1, bj + 1)
+    for r in p.specials.rows():
+        assert p.specials.get(r)[0][0] == col_h[r - 1]
+
+
 def batched_inputs(seed, B, h_max, w_max, dev, n=20000):
     rng = np.random.default_rng(seed)
     bases = np.frombuffer(b"ACGT", np.uint8)

@@ -115,6 +115,77 @@ def test_cli_runs_with_jax_blocked(tmp_path):
     assert f"alignment score: {best}  (matches=" in r.stdout, r.stdout
 
 
+def _blocked_fastas(tmp_path):
+    import numpy as np
+
+    rng = np.random.default_rng(42)
+    s0 = rng.choice(np.frombuffer(b"ACGT", np.uint8), 1500)
+    s1 = s0.copy()
+    idx = rng.random(1500) < 0.08
+    s1[idx] = rng.choice(np.frombuffer(b"ACGT", np.uint8), int(idx.sum()))
+    for name, s in (("a.fa", s0), ("b.fa", s1)):
+        (tmp_path / name).write_bytes(b">" + name.encode() + b"\n"
+                                      + s.tobytes() + b"\n")
+    return s0, s1
+
+
+def test_split_cli_runs_with_jax_blocked(tmp_path):
+    """``--split 1,1`` (slab stage 1 with a file:// border, the slab
+    traceback, stages 3-6) with ``import jax`` made to fail."""
+    from masa_tpu.ops import oracle
+
+    s0, s1 = _blocked_fastas(tmp_path)
+    r = subprocess.run(
+        [sys.executable, "-c", BLOCKED_CLI, "--device", "cpu",
+         str(tmp_path / "a.fa"), str(tmp_path / "b.fa"),
+         "--work-dir", str(tmp_path / "w"), "--split", "1,1"],
+        cwd=REPO, env=_env(), capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    best = oracle.dp_rows(s0, s1).best
+    assert (f"alignment score: {best}  (weighted column split [750, 750]; "
+            f"matches=") in r.stdout, r.stdout
+
+
+# imported by every fork worker at start-up (site's sitecustomize hook):
+# blocks JAX and checks at exit that nothing imported it
+SITECUSTOMIZE = r"""
+import atexit
+import sys
+
+class NoJax:
+    def find_spec(self, name, path=None, target=None):
+        if name == "jax" or name.startswith(("jax.", "jaxlib")):
+            raise ImportError(f"{name} is blocked in this test")
+
+sys.meta_path.insert(0, NoJax())
+
+@atexit.register
+def _check():
+    if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
+        sys.stderr.write("jax was imported\n")
+        import os
+        os._exit(3)
+"""
+
+
+def test_fork_workers_run_with_jax_blocked(tmp_path):
+    """Two fork workers, each with ``import jax`` made to fail, align the
+    pair to the oracle's score."""
+    from masa_tpu.ops import oracle
+    from masa_tpu_torch.parallel.fork import run_fork
+
+    from test_torch_split import free_base
+
+    s0, s1 = _blocked_fastas(tmp_path)
+    site = tmp_path / "site"
+    site.mkdir()
+    (site / "sitecustomize.py").write_text(SITECUSTOMIZE)
+    res = run_fork(s0, s1, [1.0, 1.0], str(tmp_path / "fw"),
+                   base_port=free_base(1), device="cpu", timeout=300,
+                   extra_env={"PYTHONPATH": str(site)})
+    assert res["score"] == oracle.dp_rows(s0, s1).best
+
+
 def test_chip_smoke_imports_only_the_port():
     """chip_smoke.py reaches the system through masa_tpu_torch alone:
     no module of JAX or of the JAX package is imported by name."""

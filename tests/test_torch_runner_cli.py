@@ -347,23 +347,90 @@ class TestCLI:
                               "--stage-1", "--backend", "numpy"], tmp_path)
         assert mine[-1] == ref[-1] == f"best score: {N} at ({N},{N})"
 
-    @pytest.mark.parametrize("flag", [["--split", "2"], ["--fork", "2"],
-                                      ["--coordinator", "localhost:1"]])
+    @pytest.mark.parametrize("flag", [
+        ["--split", "2"], ["--split", "2", "--num-hosts", "2", "--host-id",
+                           "1"], ["--coordinator", "localhost:1"]])
     def test_multi_device_modes_stop(self, fastas, tmp_path, capsys, flag):
+        """The sharded mode is not ported: it stops with an error naming
+        the queue item left (the multi-host flags parse)."""
         with pytest.raises(SystemExit) as e:
             main(list(fastas) + flag + ["--device", "cpu"])
         assert e.value.code == 2
-        assert "ROADMAP Queue 1 item 9" in capsys.readouterr().err
+        err = capsys.readouterr().err
+        assert "ROADMAP Queue 1 item 10" in err and "sharded" in err
 
     def test_oversize_input_stops(self, fastas, tmp_path, capsys,
                                   monkeypatch):
+        """The column split of an oversize input aligns locally only, as
+        in masa_tpu: a global alignment stops with an error."""
         from masa_tpu_torch import cli
 
         monkeypatch.setattr(cli, "AlignerCapabilities", lambda: Caps(100))
         with pytest.raises(SystemExit):
-            main(list(fastas) + ["--device", "cpu", "--work-dir",
-                                 str(tmp_path / "w")])
-        assert "ROADMAP Queue 1 item 9" in capsys.readouterr().err
+            main(list(fastas) + ["--device", "cpu", "--alignment-start",
+                                 "!", "--work-dir", str(tmp_path / "w")])
+        assert "only support local alignment" in capsys.readouterr().err
+
+
+@pytest.fixture
+def seed42_fastas(tmp_path):
+    """The verify recipe's seed-42 3000 bp pair (8% substitutions): local
+    score 2204 at (3000, 3000)."""
+    rng = np.random.default_rng(42)
+    s0 = "".join(rng.choice(list("ACGT"), 3000))
+    s1 = list(s0)
+    for i in np.nonzero(rng.random(3000) < 0.08)[0]:
+        s1[i] = "ACGT"[rng.integers(4)]
+    paths = []
+    for name, seq in (("a.fa", s0), ("b.fa", "".join(s1))):
+        lines = [seq[k:k + 70] for k in range(0, len(seq), 70)]
+        (tmp_path / name).write_text(f">{name}\n" + "\n".join(lines) + "\n")
+        paths.append(str(tmp_path / name))
+    return paths
+
+
+SCORE_42 = "alignment score: 2204  ("
+
+
+class TestColumnSplitCLI:
+    """--split W1,..,Wn, --fork and the oversize split through both CLIs on
+    the seed-42 pair: the same score line and byte-identical crosspoint
+    and alignment files.  Both CLIs' --fork listen on ports 7300 and up,
+    so every CLI fork case lives in this file and runs in turn."""
+
+    @pytest.mark.parametrize("flags", [
+        ["--split", "1,1"], ["--split", "1,2", "--traceback", "speculative"],
+        ["--fork", "2"]], ids=["split", "split-speculative", "fork"])
+    def test_matches_masa_tpu(self, seed42_fastas, tmp_path, flags):
+        mine, ref = run_both(seed42_fastas + flags, tmp_path)
+        score = [ln for ln in mine if ln.startswith("alignment score:")]
+        assert score == [ln for ln in ref if ln.startswith("alignment")]
+        assert score[0].startswith(SCORE_42)
+        same_artifacts(str(tmp_path / "port"), str(tmp_path / "ref"))
+
+    def test_split_stage1_only(self, seed42_fastas, tmp_path):
+        mine, ref = run_both(seed42_fastas + ["--split", "2,1", "--stage-1"],
+                             tmp_path)
+        assert mine[-1] == ref[-1] == ("stage1 (weighted column split "
+                                       "[2000, 1000]): best=2204")
+
+    def test_oversize_input_splits(self, seed42_fastas, tmp_path,
+                                   monkeypatch):
+        """seq1 wider than the capability: chained 1024-column slabs,
+        masa_tpu's score line and alignment."""
+        from masa_tpu.core import capabilities
+        from masa_tpu_torch import cli
+
+        monkeypatch.setattr(cli, "AlignerCapabilities", lambda: Caps(1024))
+        monkeypatch.setattr(capabilities, "AlignerCapabilities",
+                            lambda: Caps(1024))
+        mine, ref = run_both(seed42_fastas, tmp_path)
+        assert "seq1 exceeds per-run capability (1024 bp): splitting " \
+            "columns" in mine
+        score = [ln for ln in mine if ln.startswith("alignment score:")]
+        assert score == [ln for ln in ref if ln.startswith("alignment")]
+        assert score[0].startswith(SCORE_42)
+        same_artifacts(str(tmp_path / "port"), str(tmp_path / "ref"))
 
 
 def test_cli_self_test():
