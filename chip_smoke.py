@@ -11,8 +11,9 @@ Phases (any failure raises and the run exits non-zero):
      integer equality.  The strip kernel: SW/NW x four border types x full
      and partial heights x flush on/off x best/last-column tracking x odd
      widths, blocks reused on a capped grid, and a strip of more sub-strips
-     than the card holds at once (sampled intervals); then one main-path
-     shape (8192 rows x 2^20 columns), timed.  The batched strip kernel:
+     than the card holds at once (sampled intervals); then two main-path
+     shapes, timed: 8192 rows x 2^20 columns (SW), and one stage-2 hop,
+     8192 x 16384 (NW, best tracked, pinned borders).  The batched strip kernel:
      batches of mixed heights, widths and border codes, tall elements
      that chain in one block, zero widths.  The equal-shape batched strip
      kernel: CUSTOM borders, odd widths, 1 to 3000 elements, tall
@@ -44,11 +45,19 @@ Phases (any failure raises and the run exits non-zero):
      speculative` and through `parallel.split.align_oversize` with
      16384-column slabs (32466), each with its seconds per stage and its
      launches per kernel.
+Each main-path run prints, per stage, the kernels' summed milliseconds
+(CUDA events around every launch) beside the stage's wall time.
 The kernels line counts each kernel's launches over every main-path run
-(phases 5, 7 and 8; the fork workers report theirs).
-The last two lines are a JSON summary of the kernels and the contract
-line {"ok": true, "device": {...}}.  Without a CUDA device the script
-exits non-zero and prints no result.
+(phases 5, 7 and 8; the fork workers report theirs) and gives each
+kernel's bound: the larger of its bytes over the card's memory rate and
+its cells over the better of the roofline's mix and DPX rates measured in
+this run (for the roofline kernel, its operations over the rate the
+roofline's par body measured).  No PyTorch call computes a Gotoh strip,
+so library_ms is null.  Before the last line the script checks that no
+module of JAX or of the JAX package was imported.  The last two lines are
+a JSON summary of the kernels and the contract line {"ok": true,
+"device": {...}}.  Without a CUDA device the script exits non-zero and
+prints no result.
 """
 
 import concurrent.futures
@@ -76,6 +85,7 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
 M_1M = 1 << 20
 SCORE_1M = 796634  # masa_tpu's full six-stage score on this pair
 NEG = -999999999
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 
 
 def log(*a):
@@ -389,7 +399,7 @@ def fixed_main(dev):
     log(f"equal-shape batched strip {B} x {h} x {nj} ({cells} cells): "
         f"kernel {ms:.3f} ms ({cells / ms / 1e6:.2f} GCUPS), plain "
         f"{plain_ms:.3f} ms, equal")
-    return launches, err, ms, plain_ms
+    return launches, err, ms, plain_ms, cells, nbytes(*args, *got)
 
 
 def roofline_matrix(dev):
@@ -417,7 +427,9 @@ def roofline_matrix(dev):
     log(f"roofline bodies vs plain: {len(rl.BODIES)} bodies equal at 0, 1 "
         f"and 61 iterations; mix x256 on {xs[0].numel()} lanes: kernel "
         f"{ms:.3f} ms, plain {plain_ms:.3f} ms")
-    return worst, ms, plain_ms
+    from masa_tpu_torch.tools.roofline import OPS
+    ops = xs[0].numel() * 256 * OPS["mix"]
+    return worst, ms, plain_ms, ops, nbytes(*xs) + 4 * xs[0].numel()
 
 
 def timed(fn, *args, **kw):
@@ -432,6 +444,29 @@ def timed(fn, *args, **kw):
     end.record()
     torch.cuda.synchronize()
     return out, start.elapsed_time(end)
+
+
+def timed_best(n, fn, *args, **kw):
+    """fn's result and the least of n timings (after the caller's warm
+    run): a short kernel's single timing carries the launch's jitter."""
+    out, best = None, None
+    for _ in range(n):
+        out, ms = timed(fn, *args, **kw)
+        best = ms if best is None else min(best, ms)
+    return out, best
+
+
+def nbytes(*tensors):
+    """Bytes of the given tensors (None skipped): what a kernel must move
+    when these are its inputs and outputs."""
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def strip_bytes(args, out):
+    """Inputs read once, outputs written once, for one strip."""
+    return nbytes(*args[:6], out.bus_h, out.bus_f, out.best, out.lastcol_h,
+                  out.lastcol_e, out.rows_h, out.rows_f)
 
 
 def main_shape(dev):
@@ -455,7 +490,33 @@ def main_shape(dev):
     log(f"main shape {h} x {nj} (SW, best, flush every {flush}): kernel "
         f"{ms:.3f} ms ({h * nj / ms / 1e6:.2f} GCUPS), plain {plain_ms:.3f} "
         f"ms ({h * nj / plain_ms / 1e6:.4f} GCUPS), equal")
-    return err, ms, plain_ms
+    return err, ms, plain_ms, h * nj, strip_bytes(args, out_k)
+
+
+def hop_shape(dev):
+    """Phase 2b': the strip kernel at the shape of one stage-2 hop: 8192
+    rows against a 16384-column window, NW, the best tracked, both borders
+    pinned to the crosspoint (WITH_GAPS_OPENED), kernel and plain timed."""
+    import numpy as np
+
+    from masa_tpu_torch import InitType, ScoreParams
+    from masa_tpu_torch.ops import wavefront as wf
+
+    h, nj = 8192, 16384
+    params = ScoreParams()
+    args = strip_inputs(np.random.default_rng(29), h, nj,
+                        InitType.WITH_GAPS_OPENED, params, dev)
+    kw = dict(match=params.match, mismatch=params.mismatch,
+              gap_open=params.gap_open, gap_ext=params.gap_ext, sw=False,
+              track_best=True, store_lastcol=False, flush_every=0)
+    timed(wf.strip, *args, **kw)  # warm
+    out_k, ms = timed_best(3, wf.strip, *args, **kw)
+    out_p, plain_ms = timed(wf.strip_plain, *args, **kw)
+    err = compare(out_k, out_p, f"stage-2 hop shape {h}x{nj}")
+    log(f"stage-2 hop shape {h} x {nj} (NW, best, pinned borders): kernel "
+        f"{ms:.3f} ms ({h * nj / ms / 1e6:.2f} GCUPS), plain {plain_ms:.3f} "
+        f"ms, equal")
+    return err, ms, plain_ms, h * nj, strip_bytes(args, out_k)
 
 
 def stage4_level(s0, s1, cps, dev):
@@ -492,7 +553,10 @@ def stage4_level(s0, s1, cps, dev):
         f"{int(elems[:, 1].min())}-{int(elems[:, 1].max())}, widths up to "
         f"{width}, {cells} cells: kernel {ms:.3f} ms "
         f"({cells / ms / 1e6:.2f} GCUPS), plain {plain_ms:.3f} ms, equal")
-    return err, ms, plain_ms
+    # each element reads its rows of a and columns of b and writes its bus
+    moved = int(elems[:, 1].sum() + elems[:, 3].sum()) + elems.nbytes \
+        + nbytes(*got)
+    return err, ms, plain_ms, cells, moved
 
 
 def streamed_border(s0, s1, dev):
@@ -633,10 +697,12 @@ def full_run(s0, s1):
         if isinstance(out, list):
             ncps[name] = len(out)
         log(f"  {name}: {seconds:.2f} s, launches "
-            + ", ".join(f"{k} {v}" for k, v in launches[name].items()))
+            + ", ".join(f"{k} {v}" for k, v in launches[name].items())
+            + "; kernel ms " + kernel_ms_text(kernels.drain_events()))
 
     for c in counters.values():
         c.launches = 0
+    kernels.drain_events()
     aln = pipeline.align_pair(s0, s1, pcfg, on_stage=on_stage)
     t0 = time.time()
     rc = stage6.recheck(aln, s0, s1, pcfg.params)
@@ -654,6 +720,32 @@ def full_run(s0, s1):
     for s in ("stage1", "stage2", "stage3"):
         if launches[s]["strip"] <= 0:
             raise AssertionError(f"{s} launched no strip kernel")
+
+
+def kernel_ms_text(ms):
+    return json.dumps({k: round(v, 3) for k, v in ms.items()}) if ms \
+        else "{}"
+
+
+class StageTap(io.StringIO):
+    """The CLI's stdout: at each ``stageN: ... in X.XXs`` line (printed
+    when the stage ends) the kernels' milliseconds since the line before are read
+    off the launch events."""
+
+    def __init__(self):
+        super().__init__()
+        self.kernel_ms = {}
+
+    def write(self, text):
+        from masa_tpu_torch.ops import kernels
+
+        m = re.match(r"(stage\d): .* in [\d.]+s", text)
+        if m:
+            got = kernels.drain_events()
+            mine = self.kernel_ms.setdefault(m.group(1), {})
+            for k, v in got.items():
+                mine[k] = mine.get(k, 0.0) + v
+        return super().write(text)
 
 
 def write_fasta(path, desc, seq):
@@ -675,15 +767,22 @@ def run_cli(argv, quiet=("stage1: ... flushed",)):
                 "batched_strip": kernels.batched_strip_cuda}
     for c in counters.values():
         c.launches = 0
-    buf = io.StringIO()
+    kernels.drain_events()
+    buf = StageTap()
     t0 = time.time()
     with contextlib.redirect_stdout(buf):
         rc = cli.main(argv)
     secs = time.time() - t0
+    rest = kernels.drain_events()
     out = buf.getvalue()
     for line in out.splitlines():
         if not line.startswith(quiet):
             log(f"  cli> {line}")
+    log("  kernel ms per stage: " + json.dumps(
+        {st: {k: round(v, 3) for k, v in ms.items()}
+         for st, ms in buf.kernel_ms.items()})
+        + (f"; after the last stage line {kernel_ms_text(rest)}"
+           if rest else ""))
     if rc != 0:
         raise AssertionError(f"the CLI exited {rc}")
     return out, secs, {k: c.launches for k, c in counters.items()}
@@ -804,13 +903,20 @@ def oversize_real2(tmp):
                 "batched_strip": kernels.batched_strip_cuda}
     for c in counters.values():
         c.launches = 0
-    secs = {}
-    best, aln = split.align_oversize(
-        a, b, 16384, tmp, device="cuda",
-        on_stage=lambda name, s, _: secs.__setitem__(name, round(s, 3)))
+    secs, kms = {}, {}
+
+    def on_stage(name, s, _):
+        secs[name] = round(s, 3)
+        kms[name] = {k: round(v, 3)
+                     for k, v in kernels.drain_events().items()}
+
+    kernels.drain_events()
+    best, aln = split.align_oversize(a, b, 16384, tmp, device="cuda",
+                                     on_stage=on_stage)
     launches = {k: c.launches for k, c in counters.items()}
     log(f"real2 oversize ({len(a)} x {len(b)}, 16384-column slabs): best "
         f"{best}, score {aln.raw_score}; per stage " + json.dumps(secs)
+        + "; kernel ms per stage " + json.dumps(kms)
         + "; launches " + json.dumps(launches))
     if best != 32466 or aln.raw_score != 32466:
         raise AssertionError("real2 through align_oversize: expected 32466")
@@ -837,7 +943,8 @@ def module_entry():
 def roofline_phase(dev):
     """Phase 7: the roofline tool's measurement, and the strip kernel's
     rate on the stage-1 shape (one launch of 2^20 x 2^20, SW, best) for
-    comparison with the mix bound.  Returns the tool's launches."""
+    comparison with the mix bound.  Returns the tool's launches, its line
+    and the strip kernel's milliseconds on that launch."""
     import numpy as np
 
     from masa_tpu_torch import InitType, ScoreParams
@@ -854,7 +961,8 @@ def roofline_phase(dev):
     kw = dict(match=params.match, mismatch=params.mismatch,
               gap_open=params.gap_open, gap_ext=params.gap_ext, sw=True,
               track_best=True)
-    _, ms = timed(wf.strip, *args, **kw)
+    timed(wf.strip, *args, **kw)  # warm
+    _, ms = timed_best(2, wf.strip, *args, **kw)
     gcups = M_1M * M_1M / ms / 1e6
     log(f"roofline: strip kernel {gcups:.1f} GCUPS on one launch of "
         f"{M_1M} x {M_1M} ({ms:.1f} ms) = "
@@ -864,7 +972,7 @@ def roofline_phase(dev):
         f"bound {line['mix_dpx_bound_gcups']} GCUPS")
     if launches <= 0:
         raise AssertionError("the roofline tool launched no kernel")
-    return launches
+    return launches, line, ms
 
 
 def main() -> int:
@@ -889,17 +997,23 @@ def main() -> int:
     card = card_line()
     log(f"card: {card}")
     block_rows = build_kernels()
+    from masa_tpu_torch.ops import kernels
+    from masa_tpu_torch.tools.roofline import ALPHA as rl_alpha
+    from masa_tpu_torch.tools.roofline import OPS as rl_ops
+
     err = {"strip": kernel_matrix(dev, block_rows),
            "batched_strip": batched_matrix(dev),
            "batched_strip_fixed": fixed_matrix(dev)}
-    err["roofline"], ms, plain_ms = roofline_matrix(dev)
-    times = {"roofline": (ms, plain_ms)}
-    err_main, ms, plain_ms = main_shape(dev)
-    err["strip"] = max(err["strip"], err_main)
-    times["strip"] = (ms, plain_ms)
-    n_fixed, err_fixed, ms, plain_ms = fixed_main(dev)
+    # per kernel: (ms, plain ms, cells or operations, bytes moved) at the
+    # shape timed
+    times = {}
+    err["roofline"], *times["roofline"] = roofline_matrix(dev)
+    err_main, *times["strip"] = main_shape(dev)
+    err_hop, *hop = hop_shape(dev)
+    err["strip"] = max(err["strip"], err_main, err_hop)
+    n_fixed, err_fixed, *times["batched_strip_fixed"] = fixed_main(dev)
     err["batched_strip_fixed"] = max(err["batched_strip_fixed"], err_fixed)
-    times["batched_strip_fixed"] = (ms, plain_ms)
+    kernels.event_log = []  # time every launch of the main-path runs
     golden_pairs()
     s0, s1 = bench_pair()
     log(f"1M pair: {len(s0)} x {len(s1)}")
@@ -912,9 +1026,8 @@ def main() -> int:
         write_fasta(fa, "bench s0", s0)
         write_fasta(fb, "bench s1", s1)
         launches, cps3 = cli_run(fa, fb, os.path.join(tmp, "cli"))
-        err_lvl, ms, plain_ms = stage4_level(s0, s1, cps3, dev)
+        err_lvl, *times["batched_strip"] = stage4_level(s0, s1, cps3, dev)
         err["batched_strip"] = max(err["batched_strip"], err_lvl)
-        times["batched_strip"] = (ms, plain_ms)
         more = [
             split_cli(fa, fb, os.path.join(tmp, "split"), SCORE_1M,
                       ["--split", "1,1", "--ram-size", "0", "--disk-size",
@@ -930,16 +1043,53 @@ def main() -> int:
     for m in more:
         for k in launches:
             launches[k] += m[k]
+    kernels.event_log = None
     module_entry()
     launches["batched_strip_fixed"] = n_fixed
-    launches["roofline"] = roofline_phase(dev)
+    launches["roofline"], roof, stage1_ms = roofline_phase(dev)
+    # the bounds: cells over the better of the mix and DPX rates of this
+    # run, or bytes over the memory rate, whichever is larger.  The
+    # roofline kernel's operations go over the best int32 rate the run
+    # read in the tool's own count of operations: the par body's, or a
+    # cell's 12 operations at the better cell rate (the compiler fuses
+    # add-then-max, so the cell bodies pass the par body's count).
+    cell_rate = 1e9 * max(roof["mix_bound_gcups"],
+                          roof["mix_dpx_bound_gcups"])
+    op_rate = max(1e9 * roof["par_native_ops_per_s"],
+                  cell_rate * rl_ops["mix"] / rl_alpha)
+    kernel_rows = []
+    for name, (src, tpu) in KERNELS.items():
+        ms, plain_ms, work, moved = times[name]
+        by_ops = 1e3 * work / (op_rate if name == "roofline" else cell_rate)
+        by_bytes = 1e3 * moved / HBM_BYTES_PER_S
+        bound = max(by_ops, by_bytes)
+        log(f"bound: {name} {bound:.4f} ms by "
+            f"{'operations' if by_ops >= by_bytes else 'bytes'} (operations "
+            f"{by_ops:.4f} ms, bytes {by_bytes:.4f} ms); kernel {ms:.3f} ms "
+            f"= {100 * bound / ms:.1f}% of the bound's rate")
+        kernel_rows.append({
+            "name": name, "route": "cuda", "source": src, "replaces": tpu,
+            "launches": launches[name], "max_abs_err": err[name],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "operations" if by_ops >= by_bytes else "bytes",
+            "library_ms": None})
+    for what, ms, cells in (("stage-2 hop 8192 x 16384", hop[0], hop[2]),
+                            (f"stage-1 launch {M_1M} x {M_1M}", stage1_ms,
+                             M_1M * M_1M)):
+        bound = 1e3 * cells / cell_rate
+        log(f"bound: strip at the {what}: {bound:.4f} ms by operations; "
+            f"kernel {ms:.3f} ms = {100 * bound / ms:.1f}% of the bound's "
+            f"rate")
+    kernel_rows[0]["shapes"] = {
+        "8192x1048576": times["strip"][0], "8192x16384": hop[0],
+        f"{M_1M}x{M_1M}": stage1_ms}
+    foreign = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "masa_tpu"))
+    if foreign:
+        raise AssertionError(f"imported besides the port: {foreign[:8]}")
     log(f"chip_smoke: every phase passed in {time.time() - t_start:.1f} s, "
-        f"builds included")
-    log(json.dumps({"kernels": [{
-        "name": name, "route": "cuda", "source": src, "replaces": tpu,
-        "launches": launches[name], "max_abs_err": err[name],
-        "ms": times[name][0], "plain_ms": times[name][1]}
-        for name, (src, tpu) in KERNELS.items()]}))
+        f"builds included; no module of jax or masa_tpu was imported")
+    log(json.dumps({"kernels": kernel_rows}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

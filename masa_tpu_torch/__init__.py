@@ -13,12 +13,19 @@ The command line, with masa_tpu's options, work directory and resume:
 On a CUDA device stages 1-3 run the hand-written Hopper strip kernel
 (``csrc/strip.cu``) and stage 4 the batched strip kernel
 (``csrc/batched_strip.cu``); on the CPU stages 1-3 run the strip kernel's
-plain PyTorch version and stage 4 masa_tpu's native ladder.  The host
-layer (scoring, oracle, stage 5-6 helpers, native library, the work
-directory's files) is masa_tpu's own, imported, never JAX.
+plain PyTorch version and stage 4 the native ladder
+(``native/masanative.cpp``, built with ``g++`` at first use).  The package
+stands alone: it keeps its own copy of the host layer (scoring, oracle,
+stage 5-6 helpers, native library, the work directory's files) and imports
+nothing of masa_tpu or JAX, so it installs and runs without either.
 """
 
-from masa_tpu.types import AlignmentStart, InitType, Recurrence, ScoreParams
+from masa_tpu_torch.types import (
+    AlignmentStart,
+    InitType,
+    Recurrence,
+    ScoreParams,
+)
 
 __all__ = ["align", "load_sequence", "AlignmentStart", "InitType",
            "Recurrence", "ScoreParams"]
@@ -62,12 +69,12 @@ def load_sequence(x):
 
     import numpy as np
 
-    from masa_tpu.models.scoring import encode_sequence
+    from masa_tpu_torch.models.scoring import encode_sequence
 
     if isinstance(x, str) and "\n" not in x:
         path_like = x.endswith((".fa", ".fasta", ".fna")) or os.sep in x
         if os.path.exists(x):
-            from masa_tpu.biology.sequence import Sequence
+            from masa_tpu_torch.biology.sequence import Sequence
 
             return Sequence.from_file(x).data()
         if path_like:

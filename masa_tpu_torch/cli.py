@@ -20,14 +20,32 @@ import sys
 
 import numpy as np
 
-from masa_tpu.cli import _STARTS, _apply_modifiers, _size
-from masa_tpu.core.capabilities import AlignerCapabilities
-from masa_tpu.types import ScoreParams
+from masa_tpu_torch.core.capabilities import AlignerCapabilities
+from masa_tpu_torch.types import AlignmentStart, ScoreParams
 
 HEADER = "masa_tpu_torch: long-sequence alignment engine on PyTorch/CUDA"
 NOT_PORTED = ("is not ported to masa_tpu_torch yet (ROADMAP Queue 1 item 10, "
               "the sharded mode over torch.distributed); use masa_tpu for "
               "it")
+
+_STARTS = {
+    "*": AlignmentStart.ANYWHERE,
+    "1": AlignmentStart.SEQUENCE_1,
+    "2": AlignmentStart.SEQUENCE_2,
+    "+": AlignmentStart.SEQUENCE_1_OR_2,
+    "!": AlignmentStart.SEQUENCE_1_AND_2,
+}
+
+
+def _size(s: str) -> int:
+    mult = 1
+    s = s.strip().upper()
+    for suffix, m in (("K", 1 << 10), ("M", 1 << 20), ("G", 1 << 30),
+                      ("T", 1 << 40)):
+        if s.endswith(suffix):
+            mult, s = m, s[:-1]
+            break
+    return int(float(s) * mult)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -123,6 +141,20 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _apply_modifiers(args, which: str, idx: int) -> dict:
+    out = {}
+    for flag, fields in (("reverse", ("reverse",)),
+                         ("complement", ("complement",)),
+                         ("reverse_complement", ("reverse", "complement"))):
+        v = getattr(args, flag)
+        if v in (which, "both"):
+            for f in fields:
+                out[f] = True
+    if args.clear_n:
+        out["clear_n"] = True
+    return out
+
+
 def _early_device(argv) -> str:
     """--device of a command line that has no FASTA files (--test)."""
     p = argparse.ArgumentParser(add_help=False)
@@ -164,7 +196,7 @@ def main(argv=None) -> int:
         parser.error(f"--split N {NOT_PORTED}")
     print(HEADER)
 
-    from masa_tpu.biology.sequence import Sequence, SequenceModifiers
+    from masa_tpu_torch.biology.sequence import Sequence, SequenceModifiers
     from masa_tpu_torch.core.job import Job, JobConfig
     from masa_tpu_torch.stages import runner
 
@@ -205,7 +237,10 @@ def main(argv=None) -> int:
     )
     if args.config:
         # the INI file overrides execution resources and strategy
-        from masa_tpu.utils.config import apply_to_job_config, load_config
+        from masa_tpu_torch.utils.config import (
+            apply_to_job_config,
+            load_config,
+        )
 
         apply_to_job_config(load_config(args.config), jcfg)
     job = Job(jcfg, seqs[0].info.hash or str(len(seq0)),
@@ -359,7 +394,7 @@ def _self_test(device: str) -> int:
     """The built-in self-check (--test): align a random homologous pair
     end to end in memory on ``device`` and cross-check the score against
     the oracle (masa_tpu's --test, on the port's pipeline)."""
-    from masa_tpu.ops import oracle
+    from masa_tpu_torch.ops import oracle
     from masa_tpu_torch.ops import myers_miller as mm
     from masa_tpu_torch.stages import pipeline, stage6
     from masa_tpu_torch.utils.devices import resolve_device

@@ -14,10 +14,10 @@ import dataclasses
 import numpy as np
 import torch
 
-from masa_tpu.core.capabilities import AlignerCapabilities
-from masa_tpu.models.scoring import match_column
-from masa_tpu.ops import oracle
-from masa_tpu.types import MatchResult, Partition, Recurrence
+from masa_tpu_torch.core.capabilities import AlignerCapabilities
+from masa_tpu_torch.models.scoring import match_column
+from masa_tpu_torch.ops import oracle
+from masa_tpu_torch.types import MatchResult, Partition, Recurrence
 from masa_tpu_torch.ops import strips
 from masa_tpu_torch.ops import wavefront as wf
 

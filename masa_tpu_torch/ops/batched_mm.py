@@ -24,7 +24,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from masa_tpu.types import INF, Crosspoint, CrosspointType, InitType, \
+from masa_tpu_torch.types import INF, Crosspoint, CrosspointType, InitType, \
     ScoreParams
 from masa_tpu_torch.ops import wavefront as wf
 from masa_tpu_torch.stages import core as score

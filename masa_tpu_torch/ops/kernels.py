@@ -15,6 +15,7 @@ in ``.launches``; the roofline tool's launcher lives in
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -32,6 +33,34 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _libs: dict = {}
 build_log: dict = {}  # name -> nvcc's stderr of this process's build
+# Set to a list to time every launch: each wrapper then appends (name,
+# start, end), two CUDA events around its kernel; ``drain_events`` sums them.
+event_log: list | None = None
+
+
+@contextlib.contextmanager
+def _launch_events(name: str):
+    if event_log is None:
+        yield
+        return
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    yield
+    end.record()
+    event_log.append((name, start, end))
+
+
+def drain_events() -> dict:
+    """Kernel milliseconds by wrapper name since the last drain (waits for
+    the card); empties ``event_log``."""
+    out: dict = {}
+    if event_log:
+        torch.cuda.synchronize()
+        for name, start, end in event_log:
+            out[name] = out.get(name, 0.0) + start.elapsed_time(end)
+        event_log.clear()
+    return out
 
 
 def _nvcc() -> str:
@@ -47,18 +76,23 @@ def _nvcc() -> str:
         "(set CUDA_HOME or put nvcc on PATH)")
 
 
-def build(name: str = "strip") -> str:
+def build(name: str = "strip", defines: tuple = ()) -> str:
     """Compile ``csrc/<name>.cu`` unless this source's library exists;
-    returns the library path."""
+    returns the library path.  ``defines`` are preprocessor names for a
+    measurement build of the source (``MASA_PROFILE``, for
+    ``tools/strip_tune.py --profile``); they are part of the library's
+    name."""
     src = SOURCES[name]
     with open(src, "rb") as fh:
-        digest = hashlib.sha256(fh.read()).hexdigest()[:16]
+        digest = hashlib.sha256(
+            fh.read() + " ".join(defines).encode()).hexdigest()[:16]
     out = os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
+    cmd = [_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o", tmp,
+           src]
     r = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
     if r.returncode != 0:
         raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{r.stderr}")
@@ -71,7 +105,8 @@ _SIGNATURES = {
     "strip": {
         "masa_strip_block_rows": [],
         "masa_strip_resident_blocks": [],
-        "masa_strip_launch": ["p"] * 6 + ["i"] * 11 + ["p"] * 8 + ["i", "p"],
+        "masa_strip_launch": (["p"] * 6 + ["i"] * 11 + ["p"] * 7
+                              + ["i"] * 3 + ["p"]),
     },
     "batched_strip": {
         "masa_batched_strip_max_threads": [],
@@ -87,25 +122,33 @@ _SIGNATURES = {
 }
 
 
+def bind(name: str, path: str):
+    """``path`` loaded as the library of ``csrc/<name>.cu``."""
+    lib = ctypes.CDLL(path)
+    types = {"p": ctypes.c_void_p, "i": ctypes.c_int}
+    for fn, args in _SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = [types[x] for x in args]
+        getattr(lib, fn).restype = ctypes.c_int
+    return lib
+
+
 def load(name: str = "strip"):
     """The bound library of ``csrc/<name>.cu``, built at first use."""
     if name not in _libs:
-        lib = ctypes.CDLL(build(name))
-        types = {"p": ctypes.c_void_p, "i": ctypes.c_int}
-        for fn, args in _SIGNATURES[name].items():
-            getattr(lib, fn).argtypes = [types[x] for x in args]
-            getattr(lib, fn).restype = ctypes.c_int
-        _libs[name] = lib
+        _libs[name] = bind(name, build(name))
     return _libs[name]
 
 
 def block_rows() -> int:
-    """Rows one block of the strip kernel owns (ALPHA * THREADS)."""
+    """Rows of the strip kernel's tallest block (8 rows a thread x 32 lanes
+    x 8 compute warps): what ``strip_geometry`` cuts a strip as tall as the
+    card into."""
     return int(load().masa_strip_block_rows())
 
 
 def resident_blocks() -> int:
-    """Strip-kernel blocks the current card holds at once."""
+    """Strip-kernel blocks of ``block_rows()`` rows the current card holds
+    at once."""
     n = int(load().masa_strip_resident_blocks())
     if n < 1:
         raise RuntimeError("could not query the card's occupancy")
@@ -120,6 +163,35 @@ def _check(name: str, x: torch.Tensor, dtype, n: int, dev) -> None:
                          f"{tuple(x.shape)} {x.dtype}")
     if not x.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def strip_geometry(h: int, sms: int) -> tuple[int, int]:
+    """``(alpha, warps)``: rows per thread and compute warps per block of
+    the strip kernel for a strip of ``h`` rows on a card of ``sms`` SMs; a
+    block owns ``32 * alpha * warps`` rows.  The width plays no part: at
+    the main path's widths (a 16384-column hop, a 2^20-column band) one
+    rule by height was the best, or within a few percent of it, on the card.
+
+    A strip tall enough to give every SM a block of 8 warps at 8 rows a
+    thread takes that shape (2048 rows a block): it is bound by the SM's
+    integer pipe, and 8 rows a thread pay the fewest shuffles and
+    ring accesses per cell.  A shorter strip is bound by the latency of
+    one wavefront step (alpha dependent cells and a shuffle) times the
+    columns plus the pipeline's fill, about ``h / alpha`` steps: fewer
+    rows a thread put more warps to work and shorten the step, so it takes
+    4 rows a thread while that still fills the card's SMs with 8-warp
+    blocks, and 2 below.  A strip of at most 8 warps is one block (no
+    hand-off through global memory); otherwise blocks of 4 warps while
+    there are fewer blocks than SMs, so that a stage-2 hop of 8192 rows
+    spreads over 32 SMs."""
+    for alpha in (8, 4):
+        if h >= 32 * alpha * 8 * sms:
+            return alpha, 8
+    alpha = 2
+    n_warps = -(-h // (32 * alpha))
+    if n_warps <= 8:
+        return alpha, n_warps
+    return alpha, 8 if n_warps >= 8 * sms else 4
 
 
 def strip_cuda(a, b, bus_h, bus_f, col_h, col_e, corner: int, *,
@@ -148,7 +220,9 @@ def strip_cuda(a, b, bus_h, bus_f, col_h, col_e, corner: int, *,
     if flush_every < 0:
         raise ValueError(f"flush_every must be >= 0, got {flush_every}")
     lib = load()
-    n_sub = -(-h // int(lib.masa_strip_block_rows()))
+    alpha, warps = strip_geometry(
+        h, torch.cuda.get_device_properties(dev).multi_processor_count)
+    n_sub = -(-h // (32 * alpha * warps))
     n_int = (h - 1) // flush_every if flush_every else 0
 
     def empty(*shape):
@@ -160,25 +234,25 @@ def strip_cuda(a, b, bus_h, bus_f, col_h, col_e, corner: int, *,
     last_h, last_e = (empty(h), empty(h)) if store_lastcol else (None, None)
     rows_h, rows_f = (empty(n_int, nj), empty(n_int, nj)) if n_int \
         else (None, None)
-    progress = torch.zeros(n_sub, dtype=torch.int32, device=dev)
-    error = torch.zeros(1, dtype=torch.int32, device=dev)
+    # per sub-strip progress, then the ticket and the error flag
+    sync = torch.zeros(n_sub + 2, dtype=torch.int32, device=dev)
 
     def ptr(x):
         return ctypes.c_void_p(x.data_ptr() if x is not None else 0)
 
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), _launch_events("strip"):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.masa_strip_launch(
             ptr(a), ptr(b), ptr(out_h), ptr(out_f), ptr(col_h), ptr(col_e),
             int(corner), h, nj, match, mismatch, gap_open, gap_ext,
             int(sw), int(track_best), int(store_lastcol), int(flush_every),
             ptr(best_v), ptr(best_j), ptr(last_h), ptr(last_e),
-            ptr(rows_h), ptr(rows_f), ptr(progress), ptr(error),
+            ptr(rows_h), ptr(rows_f), ptr(sync), alpha, warps,
             int(max_ctas), ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"strip kernel launch failed: CUDA error {rc}")
     strip_cuda.launches += 1
-    if int(error.item()):
+    if int(sync[-1].item()):
         raise RuntimeError("strip kernel: a sub-strip waited over 10 s for "
                            "the bus of the sub-strip above it")
     return out_h, out_f, best_v, best_j, last_h, last_e, rows_h, rows_f
@@ -236,7 +310,7 @@ def batched_strip_cuda(a, b, elems, width: int, *, match: int,
     neg = -999999999
     bus_h = torch.full((B, width), neg, dtype=torch.int32, device=dev)
     bus_f = torch.full((B, width), neg, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), _launch_events("batched_strip"):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc_ = lib.masa_batched_strip_launch(
             ctypes.c_void_p(a.data_ptr()), ctypes.c_void_p(b.data_ptr()),
@@ -305,7 +379,7 @@ def batched_strip_fixed_cuda(a, b, col_h, col_e, bus_h, bus_f, corners, *,
     def ptr(x):
         return ctypes.c_void_p(x.data_ptr())
 
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), _launch_events("batched_strip_fixed"):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.masa_batched_strip_fixed_launch(
             ptr(a), ptr(b), ptr(col_h), ptr(col_e), ptr(corners), B, h, nj,

@@ -15,10 +15,10 @@ The engines, chosen by ``stage4_engine`` as masa_tpu chooses on its
 device and off it: on a CUDA device the level-batched engine
 (``ops/batched_mm``, the batched strip kernel), which splits only down to
 ``max(max_partition, isqrt(stage5_max_cells))``, as masa_tpu's batched
-engine does on a TPU; on the CPU masa_tpu's native C++ ladder
-(``masa_tpu.native``, JAX-free) when it is built; otherwise, and for the
-other two strategies, the Python splitter below (a port of masa_tpu's, whose
-module imports JAX)."""
+engine does on a TPU; on the CPU the native C++ ladder
+(``masa_tpu_torch.native``, the port's copy) where there is a ``g++`` to
+build it; otherwise, and for the other two strategies, the Python splitter
+below (a port of masa_tpu's, whose module imports JAX)."""
 
 from __future__ import annotations
 
@@ -28,10 +28,10 @@ import math
 import numpy as np
 import torch
 
-from masa_tpu.models.scoring import match_column
-from masa_tpu.native import bindings
-from masa_tpu.ops import oracle
-from masa_tpu.types import (
+from masa_tpu_torch.models.scoring import match_column
+from masa_tpu_torch.native import bindings
+from masa_tpu_torch.ops import oracle
+from masa_tpu_torch.types import (
     Crosspoint,
     CrosspointType,
     MatchType,
@@ -146,7 +146,7 @@ def reduce_partitions(
 
 def stage4_engine(device, strategy: SplitStrategy) -> str:
     """The engine stage 4 runs: "batched" on a CUDA device with the
-    OPTIMIZED ladder, "native" off it when masa_tpu's library is built,
+    OPTIMIZED ladder, "native" off it where the native library can be built,
     "python" otherwise."""
     if strategy != SplitStrategy.OPTIMIZED:
         return "python"

@@ -28,9 +28,9 @@ from typing import Callable
 import numpy as np
 import torch
 
-from masa_tpu.core import pruning
-from masa_tpu.models.scoring import border_cells
-from masa_tpu.types import INF, InitType, Recurrence, ScoreParams
+from masa_tpu_torch.core import pruning
+from masa_tpu_torch.models.scoring import border_cells
+from masa_tpu_torch.types import INF, InitType, Recurrence, ScoreParams
 from masa_tpu_torch.ops import wavefront as wf
 
 # Device bytes the interior rows of one launch may hold (H and F, int32).

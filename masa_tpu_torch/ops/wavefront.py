@@ -30,7 +30,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from masa_tpu.types import INF, InitType, Recurrence
+from masa_tpu_torch.types import INF, InitType, Recurrence
 from masa_tpu_torch.ops import kernels
 
 NEG = -INF

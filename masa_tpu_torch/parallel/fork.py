@@ -27,7 +27,12 @@ import time
 
 import numpy as np
 
-from masa_tpu.types import BestScore, Crosspoint, CrosspointType, ScoreParams
+from masa_tpu_torch.types import (
+    BestScore,
+    Crosspoint,
+    CrosspointType,
+    ScoreParams,
+)
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -53,10 +58,10 @@ def worker_main(config_path: str) -> int:
 
     import torch
 
-    from masa_tpu.biology import alignment as balign
-    from masa_tpu.core.crosspoints import CrosspointsFile
-    from masa_tpu.parallel.pool import AlignerPool
-    from masa_tpu.stages.stage6 import FORMATS, render_text
+    from masa_tpu_torch.biology import alignment as balign
+    from masa_tpu_torch.core.crosspoints import CrosspointsFile
+    from masa_tpu_torch.parallel.pool import AlignerPool
+    from masa_tpu_torch.stages.stage6 import FORMATS, render_text
     from masa_tpu_torch.ops import kernels
     from masa_tpu_torch.ops import myers_miller as mm
     from masa_tpu_torch.ops import wavefront as wf

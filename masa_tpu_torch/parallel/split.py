@@ -25,9 +25,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from masa_tpu.io import cells as cio
-from masa_tpu.models.scoring import border_cells, match_column
-from masa_tpu.types import (
+from masa_tpu_torch.io import cells as cio
+from masa_tpu_torch.models.scoring import border_cells, match_column
+from masa_tpu_torch.types import (
     INF,
     Crosspoint,
     CrosspointType,

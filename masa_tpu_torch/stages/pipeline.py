@@ -5,8 +5,8 @@
     stage 2  reverse goal-score march at special rows (the strip kernel)
     stage 3  recursive densification inside partitions (the strip kernel)
     stage 4  Myers-Miller splitting (the batched strip kernel on a GPU,
-             down to isqrt(max_cells_stage5); masa_tpu's native host
-             ladder on the CPU)
+             down to isqrt(max_cells_stage5); the native host ladder,
+             ``native/masanative.cpp``, on the CPU)
     stage 5  exact constrained DP + traceback per partition (host)
     stage 6  the independent re-score of the stage-5 statistics
 """
@@ -20,14 +20,14 @@ import time
 import numpy as np
 import torch
 
-from masa_tpu.biology.alignment import (
+from masa_tpu_torch.biology.alignment import (
     ALIGNMENT_METHOD_GLOBAL,
     ALIGNMENT_METHOD_LOCAL,
     Alignment,
 )
-from masa_tpu.biology.sequence import Sequence
-from masa_tpu.ops import smallsw
-from masa_tpu.types import (
+from masa_tpu_torch.biology.sequence import Sequence
+from masa_tpu_torch.ops import smallsw
+from masa_tpu_torch.types import (
     AlignmentStart,
     Crosspoint,
     CrosspointType,

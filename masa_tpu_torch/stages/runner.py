@@ -3,7 +3,7 @@ directory's artifacts with crash-safe resume (counterpart of
 masa_tpu/stages/runner.py; the reference's stage{1..6}/sw_stage{1..6}.cpp
 plus the executeTraceback sequencing of libmasa.cpp:644-655).
 
-The artifacts are masa_tpu's own (``Job``, status file, crosspoint files,
+The artifacts have masa_tpu's formats (``Job``, status file, crosspoint files,
 special rows area, statistics, CGFF, stage-6 renderings), byte for byte
 where the special-row cadence is the same, so a work directory written by
 one package resumes under the other.  The stages run the port's passes on
@@ -18,13 +18,13 @@ import time
 
 import numpy as np
 
-from masa_tpu.biology import alignment as balign
-from masa_tpu.biology.sequence import Sequence
-from masa_tpu.core.best_score import BestScoreList
-from masa_tpu.core.blocks_file import BlocksFile
-from masa_tpu.models.scoring import border_cells
-from masa_tpu.stages import stage6 as st6
-from masa_tpu.types import (
+from masa_tpu_torch.biology import alignment as balign
+from masa_tpu_torch.biology.sequence import Sequence
+from masa_tpu_torch.core.best_score import BestScoreList
+from masa_tpu_torch.core.blocks_file import BlocksFile
+from masa_tpu_torch.models.scoring import border_cells
+from masa_tpu_torch.stages import stage6 as st6
+from masa_tpu_torch.types import (
     INF,
     AlignmentStart,
     Crosspoint,
@@ -32,8 +32,8 @@ from masa_tpu.types import (
     InitType,
     Recurrence,
 )
-from masa_tpu.utils.memory import process_vm_size
-from masa_tpu.utils.timer import RecurrentTimer, Timer
+from masa_tpu_torch.utils.memory import process_vm_size
+from masa_tpu_torch.utils.timer import RecurrentTimer, Timer
 from masa_tpu_torch.core.job import Job
 from masa_tpu_torch.ops import myers_miller as mm
 from masa_tpu_torch.stages import core, pipeline
@@ -293,7 +293,7 @@ def stage2(job: Job, seq0: np.ndarray, seq1: np.ndarray, aln_id: int = 0,
 def stage3_max_cells(job: Job) -> int | None:
     """How far stage 3 densifies: not at all (1 << 62) when stage 4 runs
     the batched engine on a CUDA device, which takes the stage-2 bands
-    whole; to 32768^2 cells for masa_tpu's native ladder; else to stage
+    whole; to 32768^2 cells for the native ladder; else to stage
     5's own limit (None)."""
     engine = mm.stage4_engine(job.device,
                               mm.SplitStrategy[job.cfg.stage4_strategy])

@@ -25,11 +25,14 @@ from masa_tpu.types import (
     Recurrence,
     ScoreParams,
 )
+from masa_tpu_torch import convert
 from masa_tpu_torch.ops import batched_mm, kernels, myers_miller
 from masa_tpu_torch.ops import wavefront as wf
 from masa_tpu_torch.stages import pipeline
 
 P = ScoreParams()
+PP = convert.to_port(P)  # the port takes its own types
+port = convert.to_port
 KW = dict(match=P.match, mismatch=P.mismatch, gap_open=P.gap_open,
           gap_ext=P.gap_ext)
 BASES = np.frombuffer(b"ACGT", np.uint8)
@@ -134,7 +137,7 @@ def check_chain(s0, s1, out, mps):
         seg = smallsw.traceback_segment(
             np.ascontiguousarray(s0[c0.i:c1.i]),
             np.ascontiguousarray(s1[c0.j:c1.j]),
-            c0.i, c0.j, c0.type, c1.type, P)
+            c0.i, c0.j, int(c0.type), int(c1.type), P)
         assert seg == c1.score - c0.score, (c0, c1)
 
 
@@ -145,7 +148,7 @@ def test_reduce_matches_jax_engine(seed, m, cut, mps):
     row-sweep twin on the CPU), including gapped crosspoints."""
     s0, s1, cps = nw_pair(seed, m, cut)
     want = jbm.reduce_partitions_batched(s0, s1, cps, P, mps)
-    got = batched_mm.reduce_partitions_batched(s0, s1, cps, P, mps,
+    got = batched_mm.reduce_partitions_batched(s0, s1, port(cps), PP, mps,
                                                device="cpu")
     assert got == want
     check_chain(s0, s1, got, mps)
@@ -155,14 +158,14 @@ def test_reduce_chunks_a_level_by_bus_cells(monkeypatch):
     """A cell cap far below one level's bus cuts the level into many
     launches; the crosspoints stay the same, from several input pairs."""
     s0, s1, cps = nw_pair(0, 600, 25)
-    full = batched_mm.reduce_partitions_batched(s0, s1, cps, P, 8,
+    full = batched_mm.reduce_partitions_batched(s0, s1, port(cps), PP, 8,
                                                 device="cpu")
     mid = full[len(full) // 2]
     three = [cps[0], mid, cps[1]]
-    want = batched_mm.reduce_partitions_batched(s0, s1, three, P, 8,
+    want = batched_mm.reduce_partitions_batched(s0, s1, port(three), PP, 8,
                                                 device="cpu")
     monkeypatch.setattr(batched_mm, "CELL_CAP", 64)
-    got = batched_mm.reduce_partitions_batched(s0, s1, three, P, 8,
+    got = batched_mm.reduce_partitions_batched(s0, s1, port(three), PP, 8,
                                                device="cpu")
     assert got == want
     check_chain(s0, s1, got, 8)
@@ -171,13 +174,15 @@ def test_reduce_chunks_a_level_by_bus_cells(monkeypatch):
 
 
 def test_stage4_reduce_uses_native_ladder_on_cpu():
-    from masa_tpu.native import bindings
+    from masa_tpu.native import bindings as jbindings
+    from masa_tpu_torch.native import bindings
 
-    if not bindings.available():
-        pytest.skip("masa_tpu's native library is not built here")
+    if not (bindings.available() and jbindings.available()):
+        pytest.skip("the native libraries are not built here")
     s0, s1, cps = nw_pair(3, 500, 10)
-    got = myers_miller.stage4_reduce(s0, s1, cps, P, 16, device="cpu")
-    assert got == bindings.reduce_partitions(s0, s1, cps, P, 16)
+    got = myers_miller.stage4_reduce(s0, s1, port(cps), PP, 16, device="cpu")
+    assert got == bindings.reduce_partitions(s0, s1, port(cps), PP, 16)
+    assert got == jbindings.reduce_partitions(s0, s1, cps, P, 16)
 
 
 @pytest.mark.parametrize("start", ["*", "!"])
@@ -196,11 +201,11 @@ def test_slice_with_batched_stage4(start):
     res, endpoint = pipeline.stage1_pass(s0, s1, pcfg)
     cps = pipeline.stage2_march(s0, s1, pcfg, endpoint, res.specials)
     cps = pipeline.stage3_densify(s0, s1, pcfg, cps, max_cells=1 << 14)
-    cps = batched_mm.reduce_partitions_batched(s0, s1, cps, P, 16,
+    cps = batched_mm.reduce_partitions_batched(s0, s1, port(cps), PP, 16,
                                                device="cpu")
     aln = pipeline.stage5_emit(s0, s1, pcfg, cps)
     assert aln.raw_score == want.raw_score
-    assert stage6.recheck(aln, s0, s1, P).score == aln.raw_score
+    assert stage6.recheck(aln, s0, s1, PP).score == aln.raw_score
 
 
 def fixed_inputs(seed, custom):
@@ -315,17 +320,17 @@ def test_stage4_card_branch_stops_at_sqrt_max_cells(monkeypatch, max_cells):
     assert mps > 16
     monkeypatch.setattr(myers_miller, "stage4_engine",
                         lambda device, strategy: "batched")
-    got = myers_miller.stage4_reduce(s0, s1, cps, P, 16,
+    got = myers_miller.stage4_reduce(s0, s1, port(cps), PP, 16,
                                      stage5_max_cells=max_cells,
                                      device="cpu")
     assert got == jbm.reduce_partitions_batched(s0, s1, cps, P, mps)
     check_chain(s0, s1, got, mps)
     assert len(got) < len(batched_mm.reduce_partitions_batched(
-        s0, s1, cps, P, 16, device="cpu"))
+        s0, s1, port(cps), PP, 16, device="cpu"))
 
 
 def test_stage4_engine_follows_the_device():
-    from masa_tpu.native import bindings
+    from masa_tpu_torch.native import bindings
 
     S = myers_miller.SplitStrategy
     assert myers_miller.stage4_engine("cuda", S.OPTIMIZED) == "batched"

@@ -1,8 +1,9 @@
 """The Hopper kernels (the strip kernel, the two batched strip kernels and
 the roofline bodies) against their plain PyTorch versions, on the card.
 
-These need a CUDA GPU and nvcc and skip elsewhere.  The repo's conftest
-imports JAX, which the GPU machine lacks, so run them there with:
+These need a CUDA GPU and nvcc and skip elsewhere, and import nothing of
+masa_tpu.  The repo's conftest imports JAX, which a machine with only the
+port's dependencies lacks, so run them there with:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_cuda.py
@@ -13,9 +14,9 @@ import numpy as np
 import pytest
 import torch
 
-from masa_tpu.types import INF, InitType, ScoreParams
 from masa_tpu_torch.ops import batched_mm, kernels
 from masa_tpu_torch.ops import wavefront as wf
+from masa_tpu_torch.types import INF, InitType, ScoreParams
 
 pytestmark = pytest.mark.cuda
 NEG = -INF
@@ -83,6 +84,35 @@ def test_persistent_blocks_reuse(cuda):
     assert_equal(got, wf.strip_plain(*args, **kw))
 
 
+@pytest.mark.parametrize("alpha", [8, 4, 2])
+@pytest.mark.parametrize("warps", [8, 5, 1])
+def test_every_block_geometry_matches_plain(cuda, monkeypatch, alpha, warps):
+    """Each (rows per thread, compute warps) the kernel takes, forced in
+    place of ``strip_geometry``'s choice: full blocks, a partial last
+    block whose last row sits mid-thread and mid-warp, several sub-strips
+    on two persistent blocks, widths off the 32-column chunk."""
+    monkeypatch.setattr(kernels, "strip_geometry",
+                        lambda h, sms: (alpha, warps))
+    rows = 32 * alpha * warps
+    for n, (h, nj, sw, flush) in enumerate((
+            (rows, 64, True, 0), (2 * rows + alpha * 17 + 1, 333, False, 100),
+            (3 * rows - 1, 31, True, 7), (5, 1000, False, 2))):
+        args = inputs(1000 + n, h, nj, cuda, InitType.WITH_GAPS)
+        kw = dict(match=2, mismatch=-1, gap_open=2, gap_ext=1, sw=sw,
+                  track_best=bool(n % 2), store_lastcol=True,
+                  flush_every=flush)
+        got = wf.strip_out(*kernels.strip_cuda(*args, **kw, max_ctas=2))
+        assert_equal(got, wf.strip_plain(*args, **kw))
+
+
+def test_stage2_hop_shape_matches_plain(cuda):
+    """One stage-2 hop: 8192 x 16384, NW, best tracked, pinned borders."""
+    args = inputs(77, 8192, 16384, cuda, InitType.WITH_GAPS_OPENED)
+    kw = dict(match=1, mismatch=-3, gap_open=3, gap_ext=2, sw=False,
+              track_best=True)
+    assert_equal(wf.strip(*args, **kw), wf.strip_plain(*args, **kw))
+
+
 def test_wrapper_rejects_bad_inputs(cuda):
     a, b, bh, bf, ch, ce, corner = inputs(1, 10, 10, cuda)
     kw = dict(match=1, mismatch=-3, gap_open=3, gap_ext=2, sw=True)
@@ -128,7 +158,7 @@ def test_streamed_border_kernel_matches_plain(cuda, tmp_path):
     column the first slab's launch wrote (file://), and it writes its own.
     The kernel equals the plain version on those inputs, and the slab's
     best, last row and written column are the plain version's."""
-    from masa_tpu.io import cells as cio
+    from masa_tpu_torch.io import cells as cio
     from masa_tpu_torch.parallel import split
 
     rng = np.random.default_rng(31)
@@ -215,8 +245,8 @@ def test_batched_wrapper_rejects_bad_inputs(cuda):
 def test_batched_stage4_matches_cpu(cuda):
     """The card's stage 4 (kernel) and the CPU's (plain) give the same
     crosspoints on a homologous pair with gaps."""
-    from masa_tpu.ops import oracle
-    from masa_tpu.types import Crosspoint, Recurrence
+    from masa_tpu_torch.ops import oracle
+    from masa_tpu_torch.types import Crosspoint, Recurrence
 
     a, b, _ = batched_inputs(6, 1, 1, 1, "cpu", n=3000)
     s0, s1 = a.numpy(), np.concatenate([b.numpy()[:1000],

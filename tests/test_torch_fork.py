@@ -16,19 +16,21 @@ import pytest
 import torch
 
 from masa_tpu.ops import oracle
-from masa_tpu.stages import stage6
-from masa_tpu.types import Crosspoint, ScoreParams
+from masa_tpu.types import ScoreParams
+from masa_tpu_torch import convert
 from masa_tpu_torch.parallel.fork import run_fork
-from masa_tpu_torch.stages import pipeline
+from masa_tpu_torch.stages import pipeline, stage6
+from masa_tpu_torch.types import Crosspoint
 
 from test_torch_split import free_base
 
 P = ScoreParams()
+PP = convert.to_port(P)  # the port takes its own types
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def fork(s0, s1, nparts, work_dir, **kw):
-    return run_fork(s0, s1, [1.0] * nparts, str(work_dir), P,
+    return run_fork(s0, s1, [1.0] * nparts, str(work_dir), PP,
                     base_port=free_base(nparts - 1), device="cpu",
                     timeout=300, **kw)
 
@@ -50,7 +52,7 @@ def test_three_processes_oracle_exact(dna, homolog, tmp_path):
     # stages 5 and 6 again on the chain node 0 returned
     aln = pipeline.stage5_emit(s0, s1, pipeline.PipelineConfig(device="cpu"),
                                [Crosspoint(*c) for c in cps])
-    assert stage6.recheck(aln, s0, s1, P).score == best
+    assert stage6.recheck(aln, s0, s1, PP).score == best
     assert os.path.getsize(tmp_path / "fw" / "alignment.00.cgff") > 0
     assert [w["part"] for w in res["workers"]] == [0, 1, 2]
     assert {w["device"] for w in res["workers"]} == {"cpu"}
@@ -90,7 +92,7 @@ def test_cuda_without_a_gpu_raises(dna, tmp_path):
         pytest.skip("this host has a GPU")
     s0 = dna(100, seed=127)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        run_fork(s0, s0, [1.0, 1.0], str(tmp_path / "fw"), P)
+        run_fork(s0, s0, [1.0, 1.0], str(tmp_path / "fw"), PP)
     cfg = tmp_path / "fork.00.json"
     cfg.write_text(json.dumps({"part": 0, "device": "cuda:0"}))
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="",

@@ -1,7 +1,10 @@
-"""The port never imports JAX: a full alignment through the strip engine,
-the batched stage-4 engine and the stage-6 re-score run with ``import
-jax`` made to fail, and chip_smoke.py refuses to run without a CUDA
-device."""
+"""The port imports neither JAX nor the JAX package: a full alignment
+through the strip engine, the batched stage-4 engine, the stage-6 re-score
+and the CLI (its ``--test`` included) run in child processes where ``import
+jax`` and ``import masa_tpu`` are made to fail, no source file of the port
+names either in an import, and chip_smoke.py refuses to run without a CUDA
+device.  (``masa_tpu`` is imported here, in the parent, for its oracle
+only.)"""
 
 import json
 import os
@@ -16,16 +19,20 @@ import sys
 
 class NoJax:
     def find_spec(self, name, path=None, target=None):
-        if name == "jax" or name.startswith(("jax.", "jaxlib")):
+        if name.split(".")[0] in ("jax", "jaxlib", "masa_tpu"):
             raise ImportError(f"{name} is blocked in this test")
 
 sys.meta_path.insert(0, NoJax())
+
+def foreign():
+    return [m for m in sys.modules
+            if m.split(".")[0] in ("jax", "jaxlib", "masa_tpu")]
 
 import numpy as np
 
 import masa_tpu_torch
 import masa_tpu_torch.convert
-from masa_tpu.ops import oracle
+from masa_tpu_torch.ops import oracle
 
 rng = np.random.default_rng(3)
 bases = np.frombuffer(b"ACGT", np.uint8)
@@ -40,9 +47,9 @@ ref = oracle.dp_rows(s0, s1)
 assert aln.raw_score == ref.best, (aln.raw_score, ref.best)
 assert list(aln.end) == [ref.best_i, ref.best_j]
 # the GPU's stage 4 (batched strips; plain on the CPU) and stage 6
-from masa_tpu.types import Crosspoint
 from masa_tpu_torch.ops import batched_mm
 from masa_tpu_torch.stages import stage6
+from masa_tpu_torch.types import Crosspoint
 cps = [Crosspoint(0, 0, 0), Crosspoint(300, 300, int(
     oracle.dp_rows(s0[:300], s1[:300], masa_tpu_torch.ScoreParams(),
                    masa_tpu_torch.Recurrence.NEEDLEMAN_WUNSCH,
@@ -52,7 +59,10 @@ out = batched_mm.reduce_partitions_batched(
     s0, s1, cps, masa_tpu_torch.ScoreParams(), 16, device="cpu")
 assert out[0] == cps[0] and out[-1] == cps[-1] and len(out) > 2
 assert stage6.recheck(aln, s0, s1).score == aln.raw_score
-assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules)
+# the CLI's built-in self-check, in this same blocked process
+from masa_tpu_torch.cli import main
+assert main(["--test", "--device", "cpu"]) == 0
+assert not foreign(), foreign()
 print("ok", aln.raw_score)
 """
 
@@ -68,7 +78,8 @@ def test_alignment_runs_with_jax_blocked():
                        env=_env(), capture_output=True, text=True,
                        timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
-    assert r.stdout.startswith("ok ")
+    assert "self-test: PASS" in r.stdout, r.stdout
+    assert r.stdout.splitlines()[-1].startswith("ok "), r.stdout
 
 
 BLOCKED_CLI = r"""
@@ -77,15 +88,19 @@ import sys
 
 class NoJax:
     def find_spec(self, name, path=None, target=None):
-        if name == "jax" or name.startswith(("jax.", "jaxlib")):
+        if name.split(".")[0] in ("jax", "jaxlib", "masa_tpu"):
             raise ImportError(f"{name} is blocked in this test")
 
 sys.meta_path.insert(0, NoJax())
+
+def foreign():
+    return [m for m in sys.modules
+            if m.split(".")[0] in ("jax", "jaxlib", "masa_tpu")]
 sys.argv = ["masa_tpu_torch"] + sys.argv[1:]
 try:
     runpy.run_module("masa_tpu_torch", run_name="__main__")
 finally:
-    assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules)
+    assert not foreign(), foreign()
 """
 
 
@@ -154,15 +169,19 @@ import sys
 
 class NoJax:
     def find_spec(self, name, path=None, target=None):
-        if name == "jax" or name.startswith(("jax.", "jaxlib")):
+        if name.split(".")[0] in ("jax", "jaxlib", "masa_tpu"):
             raise ImportError(f"{name} is blocked in this test")
 
 sys.meta_path.insert(0, NoJax())
 
+def foreign():
+    return [m for m in sys.modules
+            if m.split(".")[0] in ("jax", "jaxlib", "masa_tpu")]
+
 @atexit.register
 def _check():
-    if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
-        sys.stderr.write("jax was imported\n")
+    if foreign():
+        sys.stderr.write(f"imported: {foreign()}\n")
         import os
         os._exit(3)
 """
@@ -186,19 +205,63 @@ def test_fork_workers_run_with_jax_blocked(tmp_path):
     assert res["score"] == oracle.dp_rows(s0, s1).best
 
 
-def test_chip_smoke_imports_only_the_port():
-    """chip_smoke.py reaches the system through masa_tpu_torch alone:
-    no module of JAX or of the JAX package is imported by name."""
+def _imports(path):
     import ast
 
-    with open(os.path.join(REPO, "chip_smoke.py")) as fh:
-        tree = ast.parse(fh.read())
+    with open(path) as fh:
+        tree = ast.parse(fh.read(), path)
     names = set()
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             names.update(a.name for a in node.names)
-        elif isinstance(node, ast.ImportFrom):
+        elif isinstance(node, ast.ImportFrom) and node.module:
             names.add(node.module)
+    return names
+
+
+def _port_sources():
+    out = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(os.path.join(REPO, "masa_tpu_torch")):
+        out += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def test_no_source_of_the_port_imports_jax_or_masa_tpu():
+    """Every file under masa_tpu_torch/ and chip_smoke.py, by its syntax
+    tree: no import (at any depth, so run-time imports too) names jax,
+    jaxlib or masa_tpu; import_module and __import__ are called only with
+    a string literal, and with none naming them, so no computed name can
+    reach them either."""
+    import ast
+
+    sources = _port_sources()
+    assert len(sources) > 40, len(sources)
+    bad = {}
+    for path in sources:
+        names = {n for n in _imports(path)
+                 if n.split(".")[0] in ("jax", "jaxlib", "masa_tpu")}
+        with open(path) as fh:
+            tree = ast.parse(fh.read(), path)
+        for node in ast.walk(tree):
+            if not (isinstance(node, ast.Call) and getattr(
+                    node.func, "attr", getattr(node.func, "id", "")) in (
+                        "import_module", "__import__")):
+                continue
+            arg = node.args[0] if node.args else None
+            if not (isinstance(arg, ast.Constant)
+                    and isinstance(arg.value, str)):
+                names.add(f"computed import at line {node.lineno}")
+            elif arg.value.split(".")[0] in ("jax", "jaxlib", "masa_tpu"):
+                names.add(arg.value)
+        if names:
+            bad[os.path.relpath(path, REPO)] = sorted(names)
+    assert not bad, bad
+
+
+def test_chip_smoke_imports_only_the_port():
+    """chip_smoke.py reaches the system through masa_tpu_torch alone:
+    no module of JAX or of the JAX package is imported by name."""
+    names = _imports(os.path.join(REPO, "chip_smoke.py"))
     assert "masa_tpu_torch" in {n.split(".")[0] for n in names}
     bad = {n for n in names if n.split(".")[0] in ("jax", "jaxlib",
                                                    "masa_tpu")}

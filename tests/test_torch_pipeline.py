@@ -18,11 +18,14 @@ import masa_tpu_torch
 from masa_tpu.biology.sequence import Sequence
 from masa_tpu.ops.wavefront import WavefrontConfig
 from masa_tpu.stages import pipeline as jpipe
-from masa_tpu.stages import stage6
 from masa_tpu.stages.core import SpecialRowStore as JaxRowStore
 from masa_tpu.types import AlignmentStart, Recurrence, ScoreParams
 from masa_tpu_torch import convert
-from masa_tpu_torch.stages import pipeline
+from masa_tpu_torch.stages import pipeline, stage6
+import masa_tpu.biology.alignment
+
+# masa_tpu's value-type modules, handed to convert.to_ref
+REF = (masa_tpu.types, masa_tpu.biology.sequence, masa_tpu.biology.alignment)
 
 G = os.path.join(os.path.dirname(__file__), "golden")
 S = AlignmentStart
@@ -39,8 +42,9 @@ def same_alignment(a, b):
 
 def configs(flush, **kw):
     ref = jpipe.PipelineConfig(flush_interval=flush, **kw)
+    # the same values, as the port's own types
     port = pipeline.PipelineConfig(flush_interval=flush, backend="kernel",
-                                   device="cpu", **kw)
+                                   device="cpu", **convert.to_port(kw))
     return ref, port
 
 
@@ -121,7 +125,7 @@ def test_jax_stage1_feeds_port_stage2():
     res, endpoint = jpipe.stage1_pass(s0, s1, ref)
     rows = convert.special_rows_to_numpy(res.specials)
     assert len(rows) >= 4
-    got = pipeline.stage2_march(s0, s1, port, endpoint,
+    got = pipeline.stage2_march(s0, s1, port, convert.to_port(endpoint),
                                 convert.special_rows_from_numpy(rows))
     want = jpipe.stage2_march(s0, s1, ref, endpoint, res.specials)
     assert got == want and len(got) >= 4
@@ -137,7 +141,8 @@ def test_port_stage1_feeds_jax_stage2():
     want_res, want_end = jpipe.stage1_pass(s0, s1, ref)
     assert want_end == endpoint
     assert jstore.rows() == want_res.specials.rows()
-    got = jpipe.stage2_march(s0, s1, ref, endpoint, jstore)
+    got = jpipe.stage2_march(s0, s1, ref,
+                             convert.to_ref(endpoint, *REF), jstore)
     assert got == pipeline.stage2_march(s0, s1, port, endpoint, res.specials)
 
 
@@ -149,7 +154,7 @@ def test_strip_config_from_jax():
               **dataclasses.asdict(ScoreParams(2, -1, 3, 1))}
     got = convert.strip_config_from_jax(fields)
     assert got.rows == 512
-    assert got.recurrence == Recurrence.NEEDLEMAN_WUNSCH
+    assert got.recurrence is masa_tpu_torch.Recurrence.NEEDLEMAN_WUNSCH
     assert (got.match, got.mismatch, got.gap_open, got.gap_ext) == (
         2, -1, 3, 1)
     assert got.store_lastcol and got.track_best

@@ -17,16 +17,19 @@ from masa_tpu.stages import core as jcore
 from masa_tpu.types import InitType, Recurrence, ScoreParams
 from masa_tpu_torch.core.job import Job, JobConfig
 from masa_tpu_torch.ops import strips
+from masa_tpu_torch import convert
 from masa_tpu_torch.ops import wavefront as wf
 from masa_tpu_torch.stages import core, runner
 
 P = ScoreParams()
 Z = InitType.WITH_ZEROES
+port = convert.to_port  # the port takes its own types
 
 
 def forward(seq0, seq1, prune, rec=Recurrence.SMITH_WATERMAN,
             init=(Z, Z), **kw):
-    return core.forward_pass(seq0, seq1, P, rec, *init, prune=prune,
+    return core.forward_pass(seq0, seq1, port(P), port(rec), *port(init),
+                             prune=prune,
                              backend="kernel", cfg=wf.StripConfig(rows=512),
                              device="cpu", **kw)
 

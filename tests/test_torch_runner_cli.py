@@ -16,26 +16,47 @@ import shutil
 import numpy as np
 import pytest
 
+import masa_tpu
 from masa_tpu.cli import main as jmain
+from masa_tpu.core import capabilities as jcaps
 from masa_tpu.core.job import Job as JJob
+from masa_tpu.core.job import JobConfig as JJobConfig
 from masa_tpu.ops import oracle
 from masa_tpu.stages import runner as jrunner
-from masa_tpu.core.capabilities import AlignerCapabilities
 from masa_tpu.types import AlignmentStart, ScoreParams
+from masa_tpu_torch import convert
 from masa_tpu_torch.cli import main
+from masa_tpu_torch.core import capabilities as pcaps
 from masa_tpu_torch.core.job import Job, JobConfig
 from masa_tpu_torch.stages import runner
+import masa_tpu.biology.alignment
+import masa_tpu.biology.sequence
+
+# masa_tpu's value-type modules, handed to convert.to_ref
+REF = (masa_tpu.types, masa_tpu.biology.sequence, masa_tpu.biology.alignment)
 
 P = ScoreParams()
 N = 3000
+JCaps = jcaps.AlignerCapabilities
 
 
 def quiet(*a, **k):
     pass
 
 
-def Caps(max_len):
-    return AlignerCapabilities(maximum_seq1_len=max_len)
+def Caps(max_len, cls=pcaps.AlignerCapabilities):
+    """Capabilities of one package (the port's unless told otherwise)."""
+    return cls(maximum_seq1_len=max_len)
+
+
+def jcfg(cfg):
+    """A port JobConfig as masa_tpu's (each package takes its own types)."""
+    return JJobConfig(**convert.to_ref(dict(vars(cfg)), *REF))
+
+
+def pcfg(cfg):
+    """A masa_tpu JobConfig as the port's."""
+    return JobConfig(**convert.to_port(dict(vars(cfg))))
 
 
 def write_fasta(path, desc, seq):
@@ -66,9 +87,9 @@ def jobs(tmp_path, **kw):
     """(port Job, masa_tpu Job) on the same config in two directories."""
     base = dict(ram_limit=1 << 20, disk_limit=1 << 20)
     base.update(kw)
-    mine = Job(JobConfig(work_dir=str(tmp_path / "port"), **base),
-               device="cpu")
-    ref = JJob(JobConfig(work_dir=str(tmp_path / "ref"), **base))
+    mine = Job(JobConfig(work_dir=str(tmp_path / "port"),
+                         **convert.to_port(base)), device="cpu")
+    ref = JJob(JJobConfig(work_dir=str(tmp_path / "ref"), **base))
     return mine, ref
 
 
@@ -121,7 +142,7 @@ class TestRunner:
             put(self, r, h, f)
 
         monkeypatch.setattr(mod._OffsetStore, "put", dying)
-        crashed = mine if crash_in == "port" else JJob(mine.cfg)
+        crashed = mine if crash_in == "port" else JJob(jcfg(mine.cfg))
         with pytest.raises(KeyboardInterrupt):
             mod.stage1(crashed, s0, s1, log=quiet)
         monkeypatch.setattr(mod._OffsetStore, "put", put)
@@ -240,11 +261,11 @@ class TestRunner:
         jrunner.stage1(ref, s0, s1, log=quiet)
         assert cp_files(mine.dir) == cp_files(ref.dir)
         full = str(tmp_path / "full")
-        jrunner.align_job(JJob(JobConfig(work_dir=full, ram_limit=0,
-                                         disk_limit=1 << 20)), s0, s1,
+        jrunner.align_job(JJob(JJobConfig(work_dir=full, ram_limit=0,
+                                          disk_limit=1 << 20)), s0, s1,
                           log=quiet)
-        aln_a = jrunner.execute_traceback(JJob(mine.cfg), s0, s1, log=quiet)
-        aln_b = runner.execute_traceback(Job(ref.cfg, device="cpu"), s0, s1,
+        aln_a = jrunner.execute_traceback(JJob(jcfg(mine.cfg)), s0, s1, log=quiet)
+        aln_b = runner.execute_traceback(Job(pcfg(ref.cfg), device="cpu"), s0, s1,
                                          log=quiet)
         assert aln_a.raw_score == aln_b.raw_score
         same_artifacts(mine.dir, full)
@@ -259,7 +280,7 @@ class TestRunner:
         s0, s1 = pair
         cfg = JobConfig(work_dir=str(tmp_path / "w"), ram_limit=0,
                         disk_limit=1 << 30, stage4_max_partition=0)
-        jrunner.stage1(JJob(cfg), s0, s1, log=quiet)
+        jrunner.stage1(JJob(jcfg(cfg)), s0, s1, log=quiet)
         rows = [os.path.join(dp, f) for dp, _, fs in
                 os.walk(os.path.join(cfg.work_dir, "special_rows"))
                 for f in fs if f.startswith("row.")]
@@ -269,8 +290,8 @@ class TestRunner:
         copy = str(tmp_path / "copy")
         shutil.copytree(cfg.work_dir, copy)
         cps = runner.stage2(Job(cfg, device="cpu"), s0, s1, log=quiet)
-        want = jrunner.stage2(JJob(JobConfig(**{**vars(cfg),
-                                                "work_dir": copy})),
+        want = jrunner.stage2(JJob(jcfg(JobConfig(**{**vars(cfg),
+                                                     "work_dir": copy}))),
                               s0, s1, log=quiet)
         assert cps == want
 
@@ -418,12 +439,11 @@ class TestColumnSplitCLI:
                                    monkeypatch):
         """seq1 wider than the capability: chained 1024-column slabs,
         masa_tpu's score line and alignment."""
-        from masa_tpu.core import capabilities
         from masa_tpu_torch import cli
 
         monkeypatch.setattr(cli, "AlignerCapabilities", lambda: Caps(1024))
-        monkeypatch.setattr(capabilities, "AlignerCapabilities",
-                            lambda: Caps(1024))
+        monkeypatch.setattr(jcaps, "AlignerCapabilities",
+                            lambda: Caps(1024, JCaps))
         mine, ref = run_both(seed42_fastas, tmp_path)
         assert "seq1 exceeds per-run capability (1024 bp): splitting " \
             "columns" in mine

@@ -15,14 +15,18 @@ from masa_tpu.ops import oracle
 from masa_tpu.ops import strips as jstrips
 from masa_tpu.ops.wavefront import WavefrontConfig
 from masa_tpu.parallel import split as jsplit
-from masa_tpu.stages import stage6
+from masa_tpu.stages import stage6 as jstage6
 from masa_tpu.types import InitType, Recurrence, ScoreParams
+from masa_tpu_torch import convert
+from masa_tpu_torch.io import cells as pcio
 from masa_tpu_torch.ops import strips
 from masa_tpu_torch.ops import wavefront as wf
 from masa_tpu_torch.parallel import split
-from masa_tpu_torch.stages import core
+from masa_tpu_torch.stages import core, stage6
 
 P = ScoreParams()
+PP = convert.to_port(P)  # the port takes its own types
+port = convert.to_port
 JCFG = WavefrontConfig(alpha=4, rs=1, chunk=128, track_best=True)  # 512 rows
 
 
@@ -68,7 +72,7 @@ def slab_parts(mod, cfg, s0, s1, nparts, work_dir, special_every):
     urls = mod.auto_urls(str(work_dir), nparts)
     kw = {"device": "cpu"} if mod is split else {"backend": "scan"}
     return [mod.run_part_stage1(
-        s0, s1, k, points, P, cfg,
+        s0, s1, k, points, PP if mod is split else P, cfg,
         load_url=urls[k - 1] if k > 0 else None,
         flush_url=urls[k] if k < nparts - 1 else None,
         buffered=False, special_every=special_every, **kw,
@@ -114,9 +118,9 @@ def test_run_partition_streamed_border(dna, homolog, port_rows):
         special_every=512, first_col_reader=cio.MemoryCellsReader(bh, be),
         lastcol_writer=jw)
     got = strips.run_partition(
-        wf.StripConfig(rows=port_rows, **kw), s0, right, P,
-        InitType.WITH_ZEROES, InitType.CUSTOM, special_every=512,
-        first_col_reader=cio.MemoryCellsReader(bh, be), lastcol_writer=pw)
+        wf.StripConfig(rows=port_rows, **port(kw)), s0, right, PP,
+        port(InitType.WITH_ZEROES), port(InitType.CUSTOM), special_every=512,
+        first_col_reader=pcio.MemoryCellsReader(bh, be), lastcol_writer=pw)
     assert (got.best, got.best_i, got.best_j, got.cells, got.pruned_cells) \
         == (ref.best, ref.best_i, ref.best_j, ref.cells, ref.pruned_cells)
     for name in ("last_h", "last_f", "col_h", "col_e"):
@@ -136,9 +140,9 @@ def test_run_partition_streamed_border(dna, homolog, port_rows):
 def test_streamed_border_rejects_padding_and_a_lone_writer():
     s0 = np.frombuffer(b"ACGT" * 10, np.uint8)
     cfg = wf.StripConfig(rows=16)
-    reader = cio.MemoryCellsReader(np.zeros(40), np.zeros(40))
+    reader = pcio.MemoryCellsReader(np.zeros(40), np.zeros(40))
     with pytest.raises(ValueError, match="exact strip heights"):
-        strips.run_partition(cfg, s0, s0, col_init=InitType.CUSTOM,
+        strips.run_partition(cfg, s0, s0, col_init=port(InitType.CUSTOM),
                              first_col_reader=reader, pad_rows=True)
     with pytest.raises(ValueError, match="store_lastcol"):
         strips.run_partition(cfg, s0, s0, lastcol_writer=ListWriter())
@@ -167,7 +171,7 @@ def test_part_stage1_matches(dna, homolog, tmp_path, port_rows):
 def test_serial_split_matches_oracle(dna, homolog, tmp_path, nparts):
     s0 = dna(700, seed=121)
     s1 = homolog(s0, seed=122)
-    parts = split.run_split_serial(s0, s1, nparts, str(tmp_path), P,
+    parts = split.run_split_serial(s0, s1, nparts, str(tmp_path), PP,
                                    wf.StripConfig(rows=512), device="cpu")
     ref = oracle.dp_rows(s0, s1, P)
     assert max(p.best for p in parts) == ref.best
@@ -183,7 +187,7 @@ def test_serial_split_matches_oracle(dna, homolog, tmp_path, nparts):
 def test_split_threads_over_sockets(dna, homolog):
     s0 = dna(600, seed=123)
     s1 = homolog(s0, seed=124)
-    parts = split.run_split_threads(s0, s1, 3, P, wf.StripConfig(rows=256),
+    parts = split.run_split_threads(s0, s1, 3, PP, wf.StripConfig(rows=256),
                                     base_port=free_base(2), device="cpu")
     ref = oracle.dp_rows(s0, s1, P)
     assert max(p.best for p in parts) == ref.best
@@ -201,7 +205,7 @@ def test_pipelined_traceback_matches(dna, homolog, tmp_path, nparts):
     s1 = homolog(s0, seed=132)
     ref = slab_parts(jsplit, JCFG, s0, s1, nparts, tmp_path / "ref", 512)
     got = slab_parts(split, None, s0, s1, nparts, tmp_path / "port", 512)
-    cps = split.pipelined_traceback(s0, s1, got, P, device="cpu")
+    cps = split.pipelined_traceback(s0, s1, got, PP, device="cpu")
     assert cps == jsplit.pipelined_traceback(s0, s1, ref, P)
     best = oracle.dp_rows(s0, s1, P).best
     assert cps[-1].score == best and cps[0].score == 0
@@ -210,7 +214,7 @@ def test_pipelined_traceback_matches(dna, homolog, tmp_path, nparts):
     pcfg = pipeline.PipelineConfig(max_cells_stage5=1 << 14, device="cpu")
     aln = pipeline.stage5_emit(s0, s1, pcfg,
                                pipeline.stage3_densify(s0, s1, pcfg, cps))
-    assert stage6.recheck(aln, s0, s1, P).score == aln.raw_score == best
+    assert stage6.recheck(aln, s0, s1, PP).score == aln.raw_score == best
 
 
 @pytest.mark.parametrize("case", ["reuse", "miss"])
@@ -223,7 +227,8 @@ def test_speculative_traceback_matches(dna, homolog, tmp_path, case):
           homolog(s0, seed=154, sub_rate=0.3, indel_rate=0.15))
     ref = slab_parts(jsplit, JCFG, s0, s1, 3, tmp_path / "ref", 512)
     got = slab_parts(split, None, s0, s1, 3, tmp_path / "port", 512)
-    cps, reused = split.speculative_traceback(s0, s1, got, P, device="cpu")
+    cps, reused = split.speculative_traceback(s0, s1, got, PP,
+                                                 device="cpu")
     want, want_reused = jsplit.speculative_traceback(s0, s1, ref, P)
     assert (cps, reused) == (want, want_reused)
     assert (reused > 0) == (case == "reuse")
@@ -237,7 +242,7 @@ def test_align_oversize_matches(dna, homolog, tmp_path):
     s1 = homolog(s0, seed=42)
     (tmp_path / "port").mkdir()
     best, aln = split.align_oversize(
-        s0, s1, max_width=256, work_dir=str(tmp_path / "port"), params=P,
+        s0, s1, max_width=256, work_dir=str(tmp_path / "port"), params=PP,
         max_cells_stage5=1 << 14, device="cpu")
     (tmp_path / "ref").mkdir()
     want_best, want = jsplit.align_oversize(
@@ -245,8 +250,8 @@ def test_align_oversize_matches(dna, homolog, tmp_path):
         cfg=JCFG, max_cells_stage5=1 << 14)
     ref = oracle.dp_rows(s0, s1, P)
     assert best == want_best == aln.raw_score == ref.best
-    assert stage6.render_text(aln, s0, s1) == stage6.render_text(want, s0,
-                                                                 s1)
+    assert stage6.render_text(aln, s0, s1) == jstage6.render_text(want, s0,
+                                                                  s1)
 
 
 def test_slab_interval():

@@ -10,8 +10,11 @@ import pytest
 from masa_tpu.ops import strips as jstrips
 from masa_tpu.ops import wavefront as jwf
 from masa_tpu.types import INF, InitType, Recurrence, ScoreParams
+from masa_tpu_torch import convert
 from masa_tpu_torch.ops import strips
 from masa_tpu_torch.ops import wavefront as wf
+
+port = convert.to_port
 
 NEG = -INF
 SW, NW = Recurrence.SMITH_WATERMAN, Recurrence.NEEDLEMAN_WUNSCH
@@ -37,10 +40,12 @@ def both(s0, s1, params, rec, row_init, col_init, port_rows, special_every,
         jwf.WavefrontConfig(alpha=4, rs=1, chunk=512, **kw), s0, s1, params,
         row_init, col_init, first_row=first_row, first_col=first_col,
         backend="scan", special_every=special_every, pad_rows=pad_rows)
+    # the port takes its own types: the same values, converted
+    kw["recurrence"] = port(rec)
     got = strips.run_partition(
-        wf.StripConfig(rows=port_rows, **kw), s0, s1, params, row_init,
-        col_init, first_row=first_row, first_col=first_col,
-        special_every=special_every, pad_rows=pad_rows)
+        wf.StripConfig(rows=port_rows, **kw), s0, s1, port(params),
+        port(row_init), port(col_init), first_row=first_row,
+        first_col=first_col, special_every=special_every, pad_rows=pad_rows)
     return ref, got
 
 

@@ -14,6 +14,7 @@ from masa_tpu.ops import oracle
 from masa_tpu.ops import wavefront as jwf
 from masa_tpu.types import INF, InitType, Recurrence, ScoreParams
 from masa_tpu_torch.ops import kernels
+from masa_tpu_torch import convert
 from masa_tpu_torch.ops import wavefront as wf
 
 NEG = -INF
@@ -193,9 +194,11 @@ def test_border_synthesis_matches_scoring():
     k = torch.arange(0, 50)
     for code in BORDERS[:3]:
         ref, _ = border_cells(50, code, params)
-        got = wf.border_h(code, k, params.gap_open, params.gap_ext)
+        got = wf.border_h(convert.to_port(code), k, params.gap_open,
+                          params.gap_ext)
         np.testing.assert_array_equal(got.numpy(), ref)
-        bh, bf = wf.init_bus(code, 49, params.gap_open, params.gap_ext, "cpu")
+        bh, bf = wf.init_bus(convert.to_port(code), 49, params.gap_open,
+                             params.gap_ext, "cpu")
         np.testing.assert_array_equal(bh.numpy(), ref[1:])
         assert (bf == NEG).all()
 
