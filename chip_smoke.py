@@ -2,6 +2,8 @@
 """Drive masa_tpu_torch once on one CUDA card, end to end.
 
 Run from the root of a checkout:  python3 chip_smoke.py
+(``--save-stage4 FILE.npz`` also keeps the 1M pair and the element tables
+of its stage-4 launches, for ``tools/batched_tune.py --tables``).
 
 Phases (any failure raises and the run exits non-zero):
   1. the card's name and power limit; build csrc/strip.cu,
@@ -30,9 +32,10 @@ Phases (any failure raises and the run exits non-zero):
      the full run resuming it (stage 1 reported as already executed, score
      796634, stage 5 verified), strip launches in the first call and
      batched launches in the second; per-stage times and pruned cells;
-     then the batched kernel at that run's own shape: stage 4's first
-     level, rebuilt from its stage-3 crosspoints, timed against its plain
-     version;
+     then the batched kernel at that run's own shapes: every launch of
+     stage 4, forward and reverse, level by level, rebuilt from its
+     stage-3 crosspoints, each timed against its plain version and its
+     own bound;
   6. `python -m masa_tpu_torch --test --device cuda` as a subprocess;
   7. the roofline tool (`masa_tpu_torch.tools.roofline.measure`), printed
      as its JSON line beside the strip kernel's rate on the stage-1
@@ -52,7 +55,10 @@ The kernels line counts each kernel's launches over every main-path run
 kernel's bound: the larger of its bytes over the card's memory rate and
 its cells over the better of the roofline's mix and DPX rates measured in
 this run (for the roofline kernel, its operations over the rate the
-roofline's par body measured).  No PyTorch call computes a Gotoh strip,
+roofline's par body measured).  The batched strip kernel's times and
+bound are sums over every launch of the CLI run's stage 4 (each launch
+beside its own bound under "stage4_launches"); a short kernel's time is
+taken by events around its launch alone, the least of a few.  No PyTorch call computes a Gotoh strip,
 so library_ms is null.  Before the last line the script checks that no
 module of JAX or of the JAX package was imported.  The last two lines are
 a JSON summary of the kernels and the contract line {"ok": true,
@@ -279,6 +285,7 @@ def batched_matrix(dev):
     import torch
 
     from masa_tpu_torch.ops import wavefront as wf
+    from masa_tpu_torch.tools import batched_tune
 
     rng = np.random.default_rng(13)
     bases = np.frombuffer(b"ACGT", np.uint8)
@@ -303,8 +310,11 @@ def batched_matrix(dev):
         want = wf.batched_strip_plain(a, b, elems, max(w_max, 1), **kw)
         worst = max(worst, batched_diff(got, want,
                                         f"B={B} h<={h_max} w<={w_max}"))
-    log(f"batched kernel vs plain: {len(cases)} cases equal (max |diff| "
-        f"{worst}, tolerance 0) in {time.time() - t0:.1f} s")
+    edges = batched_tune.check_batched(dev)
+    log(f"batched kernel vs plain: {len(cases)} mixed cases and {edges} "
+        f"comparisons by height, width, border code and forced block "
+        f"geometry equal (max |diff| {worst}, tolerance 0) in "
+        f"{time.time() - t0:.1f} s")
     return worst
 
 
@@ -321,41 +331,15 @@ def batched_diff(got, want, what):
     return worst
 
 
-def fixed_inputs(rng, B, h, nj, dev):
-    """Equal-shape batch inputs with CUSTOM borders: homologous
-    characters, random border and bus values, -INF in a fifth of the gap
-    cells, random corners."""
-    import numpy as np
-    import torch
-
-    bases = np.frombuffer(b"ACGT", np.uint8)
-    a = rng.choice(bases, (B, h))
-    b = a[:, np.arange(nj) % h].copy()
-    flip = rng.random((B, nj)) < 0.25
-    b[flip] = rng.choice(bases, int(flip.sum()))
-
-    def t(x, dt):
-        return torch.from_numpy(np.ascontiguousarray(x).astype(dt)).to(dev)
-
-    def gaps(shape):
-        return np.where(rng.random(shape) < 0.2, NEG,
-                        rng.integers(-80, 20, shape))
-
-    return (t(a, np.uint8), t(b, np.uint8),
-            t(rng.integers(-60, 40, (B, h)), np.int32),
-            t(gaps((B, h)), np.int32),
-            t(rng.integers(-60, 40, (B, nj)), np.int32),
-            t(gaps((B, nj)), np.int32),
-            t(rng.integers(-60, 40, B), np.int32))
-
-
 def fixed_matrix(dev):
     """Phase 2d: the equal-shape batched kernel equals its plain version:
     CUSTOM borders, odd widths, 1 to 3000 elements, elements taller than
-    one block (2048 rows) that chain sub-strips."""
+    their warps' rows that chain sub-strips, then the tune tool's heights
+    and forced geometries."""
     import numpy as np
 
     from masa_tpu_torch.ops import wavefront as wf
+    from masa_tpu_torch.tools import batched_tune
 
     rng = np.random.default_rng(17)
     cases = ((1, 1, 1), (1, 300, 256), (3, 300, 255), (64, 64, 129),
@@ -363,15 +347,18 @@ def fixed_matrix(dev):
     worst = 0
     t0 = time.time()
     for k, (B, h, nj) in enumerate(cases):
-        args = fixed_inputs(rng, B, h, nj, dev)
+        args = batched_tune.fixed_inputs(rng, B, h, nj, dev)
         kw = (dict(match=1, mismatch=-3, gap_open=3, gap_ext=2) if k % 2
               else dict(match=2, mismatch=-1, gap_open=2, gap_ext=1))
         worst = max(worst, batched_diff(
             wf.batched_strip_fixed(*args, **kw),
             wf.batched_strip_fixed_plain(*args, **kw),
             f"fixed B={B} h={h} nj={nj}"))
-    log(f"equal-shape batched kernel vs plain: {len(cases)} cases equal "
-        f"(max |diff| {worst}, tolerance 0) in {time.time() - t0:.1f} s")
+    edges = batched_tune.check_fixed(dev)
+    log(f"equal-shape batched kernel vs plain: {len(cases)} cases and "
+        f"{edges} comparisons by height, width and forced block geometry "
+        f"equal (max |diff| {worst}, tolerance 0) in "
+        f"{time.time() - t0:.1f} s")
     return worst
 
 
@@ -383,22 +370,25 @@ def fixed_main(dev):
 
     from masa_tpu_torch.ops import kernels
     from masa_tpu_torch.ops import wavefront as wf
+    from masa_tpu_torch.tools import batched_tune
 
-    B, h, nj = 8192, 64, 128
-    args = fixed_inputs(np.random.default_rng(19), B, h, nj, dev)
+    B, h, nj = batched_tune.FIXED
+    args = batched_tune.fixed_inputs(np.random.default_rng(19), B, h, nj,
+                                     dev)
     kw = dict(match=1, mismatch=-3, gap_open=3, gap_ext=2)
     timed(wf.batched_strip_fixed, *args, **kw)  # warm
     kernels.batched_strip_fixed_cuda.launches = 0
-    got, ms = timed(wf.batched_strip_fixed, *args, **kw)
+    got, _ = timed(wf.batched_strip_fixed, *args, **kw)
     launches = kernels.batched_strip_fixed_cuda.launches
     if launches <= 0:
         raise AssertionError("batched_strip_fixed launched no kernel")
+    _, call_ms, ms = timed_launch(5, wf.batched_strip_fixed, *args, **kw)
     want, plain_ms = timed(wf.batched_strip_fixed_plain, *args, **kw)
     err = batched_diff(got, want, f"fixed B={B} h={h} nj={nj}")
     cells = B * h * nj
     log(f"equal-shape batched strip {B} x {h} x {nj} ({cells} cells): "
-        f"kernel {ms:.3f} ms ({cells / ms / 1e6:.2f} GCUPS), plain "
-        f"{plain_ms:.3f} ms, equal")
+        f"kernel {ms:.3f} ms ({cells / ms / 1e6:.2f} GCUPS; {call_ms:.3f} ms "
+        f"around the wrapper's call), plain {plain_ms:.3f} ms, equal")
     return launches, err, ms, plain_ms, cells, nbytes(*args, *got)
 
 
@@ -454,6 +444,27 @@ def timed_best(n, fn, *args, **kw):
         out, ms = timed(fn, *args, **kw)
         best = ms if best is None else min(best, ms)
     return out, best
+
+
+def timed_launch(n, fn, *args, **kw):
+    """fn's result and the least of n timings, twice over: by events
+    around the call (the wrapper's host work shows where the card waits
+    for it) and by the wrappers' own events around their launches alone,
+    summed.  After the caller's warm run."""
+    from masa_tpu_torch.ops import kernels
+
+    saved, kernels.event_log = kernels.event_log, []
+    out, best, best_launch = None, None, None
+    try:
+        for _ in range(n):
+            out, ms = timed(fn, *args, **kw)
+            launch = sum(kernels.drain_events().values())
+            best = ms if best is None else min(best, ms)
+            best_launch = launch if best_launch is None \
+                else min(best_launch, launch)
+    finally:
+        kernels.event_log = saved
+    return out, best, best_launch
 
 
 def nbytes(*tensors):
@@ -519,10 +530,15 @@ def hop_shape(dev):
     return err, ms, plain_ms, h * nj, strip_bytes(args, out_k)
 
 
-def stage4_level(s0, s1, cps, dev):
-    """The forward halves of stage 4's first level on the 1M pair, rebuilt
-    from the CLI's stage-3 crosspoints at stage 4's stop as batched_mm
-    cuts them, kernel and plain timed on the same inputs."""
+def stage4_levels(s0, s1, cps, dev, save=None):
+    """Every launch of stage 4 on the 1M pair, forward and reverse, level
+    by level: the element tables are tapped from one run of the engine on
+    the CLI's stage-3 crosspoints at stage 4's stop, then each launch is
+    timed alone (least of 3, events around the launch and around the
+    wrapper's call) and held against its plain version on the same inputs.
+    ``save``: a path for the pair and the tables (``.npz``), which
+    ``tools/batched_tune.py --tables`` times again, with this package or
+    another.  Returns (max |diff|, [per-launch dict])."""
     import math
 
     import numpy as np
@@ -530,33 +546,58 @@ def stage4_level(s0, s1, cps, dev):
 
     from masa_tpu_torch import ScoreParams
     from masa_tpu_torch.ops import batched_mm
+    from masa_tpu_torch.ops import kernels
     from masa_tpu_torch.ops import wavefront as wf
     from masa_tpu_torch.stages import pipeline
 
     params = ScoreParams()
     mps = max(16, math.isqrt(pipeline.PipelineConfig().max_cells_stage5))
-    pending = [p for p in zip(cps, cps[1:])
-               if not batched_mm.is_done(*p, mps)]
-    _, fwd, _ = batched_mm.level_halves(pending, len(s0), len(s1))
-    elems = batched_mm.elems_of(fwd)
-    width = max(1, int(elems[:, 3].max()))
-    a, b = (torch.from_numpy(np.ascontiguousarray(x)).to(dev)
-            for x in (s0, s1))
+    tapped = []
+    batched_mm.reduce_partitions_batched(
+        s0, s1, cps, params, mps, device=dev,
+        on_launches=lambda level, el_f, el_r, width: tapped.extend(
+            [(level, "forward", el_f, width), (level, "reverse", el_r,
+                                                width)]))
+    if save:
+        np.savez(save, s0=s0, s1=s1, launches=np.array(
+            [(level, way == "reverse", width)
+             for level, way, _, width in tapped]),
+            **{f"elems{k}": t[2] for k, t in enumerate(tapped)})
+    views = {"forward": (s0, s1), "reverse": (s0[::-1], s1[::-1])}
+    views = {k: tuple(torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                      for x in v) for k, v in views.items()}
     kw = dict(match=params.match, mismatch=params.mismatch,
               gap_open=params.gap_open, gap_ext=params.gap_ext)
-    timed(wf.batched_strip, a, b, elems, width, **kw)  # warm
-    got, ms = timed(wf.batched_strip, a, b, elems, width, **kw)
-    want, plain_ms = timed(wf.batched_strip_plain, a, b, elems, width, **kw)
-    err = batched_diff(got, want, "stage-4 level 1")
-    cells = int((elems[:, 1].astype(np.int64) * elems[:, 3]).sum())
-    log(f"stage-4 level 1 forward halves: {len(elems)} elements, heights "
-        f"{int(elems[:, 1].min())}-{int(elems[:, 1].max())}, widths up to "
-        f"{width}, {cells} cells: kernel {ms:.3f} ms "
-        f"({cells / ms / 1e6:.2f} GCUPS), plain {plain_ms:.3f} ms, equal")
-    # each element reads its rows of a and columns of b and writes its bus
-    moved = int(elems[:, 1].sum() + elems[:, 3].sum()) + elems.nbytes \
-        + nbytes(*got)
-    return err, ms, plain_ms, cells, moved
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows, worst = [], 0
+    for level, way, elems, width in tapped:
+        a, b = views[way]
+        timed(wf.batched_strip, a, b, elems, width, **kw)  # warm
+        got, call_ms, ms = timed_launch(3, wf.batched_strip, a, b, elems,
+                                        width, **kw)
+        want, plain_ms = timed(wf.batched_strip_plain, a, b, elems, width,
+                               **kw)
+        worst = max(worst, batched_diff(got, want,
+                                        f"stage-4 level {level} {way}"))
+        cells = int((elems[:, 1].astype(np.int64) * elems[:, 3]).sum())
+        # each element reads its rows of a and columns of b and writes
+        # its bus
+        moved = int(elems[:, 1].sum() + elems[:, 3].sum()) + elems.nbytes \
+            + nbytes(*got)
+        geo = kernels.batched_geometry(elems[:, 1], sms)
+        rows.append(dict(level=level, way=way, elements=len(elems),
+                         heights=[int(elems[:, 1].min()),
+                                  int(elems[:, 1].max())],
+                         width=width, cells=cells, bytes=moved, ms=ms,
+                         call_ms=call_ms, plain_ms=plain_ms,
+                         geometry=[geo.alpha, geo.warps, geo.per_block]))
+        log(f"stage-4 level {level} {way} halves: {len(elems)} elements, "
+            f"heights {rows[-1]['heights'][0]}-{rows[-1]['heights'][1]}, "
+            f"widths up to {width}, {cells} cells, alpha x warps x per "
+            f"block {geo.alpha} x {geo.warps} x {geo.per_block}: kernel "
+            f"{ms:.3f} ms ({cells / ms / 1e6:.2f} GCUPS; {call_ms:.3f} ms "
+            f"around the call), plain {plain_ms:.3f} ms, equal")
+    return worst, rows
 
 
 def streamed_border(s0, s1, dev):
@@ -992,6 +1033,9 @@ def main() -> int:
         print(f"chip_smoke: masa_tpu_torch not found beside chip_smoke.py "
               f"({e}); run it from the root of a checkout", file=sys.stderr)
         return 2
+    # an optional argument: keep stage 4's launches for the tune tool
+    save_stage4 = sys.argv[sys.argv.index("--save-stage4") + 1] \
+        if "--save-stage4" in sys.argv else None
     t_start = time.time()
     dev = torch.device("cuda")
     card = card_line()
@@ -1026,7 +1070,7 @@ def main() -> int:
         write_fasta(fa, "bench s0", s0)
         write_fasta(fb, "bench s1", s1)
         launches, cps3 = cli_run(fa, fb, os.path.join(tmp, "cli"))
-        err_lvl, *times["batched_strip"] = stage4_level(s0, s1, cps3, dev)
+        err_lvl, levels = stage4_levels(s0, s1, cps3, dev, save_stage4)
         err["batched_strip"] = max(err["batched_strip"], err_lvl)
         more = [
             split_cli(fa, fb, os.path.join(tmp, "split"), SCORE_1M,
@@ -1057,12 +1101,40 @@ def main() -> int:
                           roof["mix_dpx_bound_gcups"])
     op_rate = max(1e9 * roof["par_native_ops_per_s"],
                   cell_rate * rl_ops["mix"] / rl_alpha)
+    # the batched kernel over every launch of stage 4: each launch against
+    # its own bound, the kernels line takes the sums
+    for lv in levels:
+        by_ops = 1e3 * lv["cells"] / cell_rate
+        by_bytes = 1e3 * lv["bytes"] / HBM_BYTES_PER_S
+        lv["bound_ms"] = max(by_ops, by_bytes)
+        lv["bound_by"] = "operations" if by_ops >= by_bytes else "bytes"
+        log(f"bound: batched_strip at stage-4 level {lv['level']} "
+            f"{lv['way']}: {lv['bound_ms']:.4f} ms by {lv['bound_by']}; "
+            f"kernel {lv['ms']:.3f} ms = "
+            f"{100 * lv['bound_ms'] / lv['ms']:.1f}% of the bound's rate")
+    if len(levels) != launches["batched_strip"] - sum(
+            m["batched_strip"] for m in more):
+        log(f"note: stage 4 was rebuilt as {len(levels)} launches")
+    gap = sum(lv["ms"] - lv["bound_ms"] for lv in levels)
+    log(f"batched_strip over the {len(levels)} launches of the CLI run's "
+        f"stage 4: kernel {sum(lv['ms'] for lv in levels):.3f} ms, bound "
+        f"{sum(lv['bound_ms'] for lv in levels):.3f} ms, launches x (time "
+        f"- bound) {gap:.3f} ms, plain "
+        f"{sum(lv['plain_ms'] for lv in levels):.1f} ms")
     kernel_rows = []
     for name, (src, tpu) in KERNELS.items():
-        ms, plain_ms, work, moved = times[name]
-        by_ops = 1e3 * work / (op_rate if name == "roofline" else cell_rate)
-        by_bytes = 1e3 * moved / HBM_BYTES_PER_S
-        bound = max(by_ops, by_bytes)
+        if name == "batched_strip":
+            ms, plain_ms, bound = (sum(lv[k] for lv in levels)
+                                   for k in ("ms", "plain_ms", "bound_ms"))
+            by_ops, by_bytes = (
+                1e3 * sum(lv["cells"] for lv in levels) / cell_rate,
+                1e3 * sum(lv["bytes"] for lv in levels) / HBM_BYTES_PER_S)
+        else:
+            ms, plain_ms, work, moved = times[name]
+            by_ops = 1e3 * work / (op_rate if name == "roofline"
+                                   else cell_rate)
+            by_bytes = 1e3 * moved / HBM_BYTES_PER_S
+            bound = max(by_ops, by_bytes)
         log(f"bound: {name} {bound:.4f} ms by "
             f"{'operations' if by_ops >= by_bytes else 'bytes'} (operations "
             f"{by_ops:.4f} ms, bytes {by_bytes:.4f} ms); kernel {ms:.3f} ms "
@@ -1080,6 +1152,7 @@ def main() -> int:
         log(f"bound: strip at the {what}: {bound:.4f} ms by operations; "
             f"kernel {ms:.3f} ms = {100 * bound / ms:.1f}% of the bound's "
             f"rate")
+    kernel_rows[1]["stage4_launches"] = levels
     kernel_rows[0]["shapes"] = {
         "8192x1048576": times["strip"][0], "8192x16384": hop[0],
         f"{M_1M}x{M_1M}": stage1_ms}

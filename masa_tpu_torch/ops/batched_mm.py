@@ -4,7 +4,8 @@ masa_tpu/ops/batched_mm.py, the TPU's stage-4 engine).
 Every crosspoint pair still wider or taller than ``max_partition`` is
 split at a middle row.  That needs one forward and one reverse NW
 half-pass per pair; all the halves of a level run in one launch of the
-batched strip kernel (``csrc/batched_strip.cu``, one block per half) on
+batched strip kernel (``csrc/batched_strip.cu``; a half is a warp, a chain
+of warps or a whole block, by the level's heights) on
 sequence views uploaded once, and the Myers-Miller column match of every
 pair runs on the device as tensor ops, so a level pulls four integers per
 pair to the host.
@@ -186,10 +187,13 @@ def reduce_partitions_batched(
     params: ScoreParams,
     max_partition: int = 16,
     device="cuda",
+    on_launches=None,
 ) -> list[Crosspoint]:
     """Split every adjacent pair until max(height, width) <= max_partition,
     one batched launch per direction per level (per ``CELL_CAP`` bus cells
-    of it)."""
+    of it).  ``on_launches(level, el_f, el_r, width)``, if given, sees the
+    element tables of each forward and reverse launch pair before it runs
+    (a measurement's tap)."""
     seq0 = np.asarray(seq0, np.uint8)
     seq1 = np.asarray(seq1, np.uint8)
     go = params.gap_open
@@ -212,6 +216,8 @@ def reduce_partitions_batched(
         next_work = []
         for lo, hi, width in _chunks([x.w for x in fwd], CELL_CAP):
             el_f, el_r = elems_of(fwd[lo:hi]), elems_of(rev[lo:hi])
+            if on_launches is not None:
+                on_launches(level, el_f, el_r, width)
             fh, ff = _run_halves(dev, el_f, False, params, width)
             rh, rf = _run_halves(dev, el_r, True, params, width)
             goals = [c1.score - c0.score + (

@@ -19,9 +19,12 @@ import contextlib
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -76,6 +79,37 @@ def _nvcc() -> str:
         "(set CUDA_HOME or put nvcc on PATH)")
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def source_files(name: str) -> list[str]:
+    """``csrc/<name>.cu`` and every file it includes by a quoted name,
+    directly or through another, each once, the source first."""
+    files, todo = [], [SOURCES[name]]
+    while todo:
+        path = os.path.normpath(todo.pop())
+        if path in files:
+            continue
+        files.append(path)
+        with open(path, "rb") as fh:
+            text = fh.read()
+        todo += [os.path.join(os.path.dirname(path), inc.decode())
+                 for inc in _INCLUDE.findall(text)]
+    return files
+
+
+def source_digest(name: str, defines: tuple = ()) -> str:
+    """What names a built library: the bytes of every file of
+    ``source_files`` and the defines, so an edit to a shared header
+    rebuilds every kernel that includes it."""
+    sha = hashlib.sha256()
+    for path in source_files(name):
+        with open(path, "rb") as fh:
+            sha.update(fh.read())
+    sha.update(" ".join(defines).encode())
+    return sha.hexdigest()[:16]
+
+
 def build(name: str = "strip", defines: tuple = ()) -> str:
     """Compile ``csrc/<name>.cu`` unless this source's library exists;
     returns the library path.  ``defines`` are preprocessor names for a
@@ -83,9 +117,7 @@ def build(name: str = "strip", defines: tuple = ()) -> str:
     ``tools/strip_tune.py --profile``); they are part of the library's
     name."""
     src = SOURCES[name]
-    with open(src, "rb") as fh:
-        digest = hashlib.sha256(
-            fh.read() + " ".join(defines).encode()).hexdigest()[:16]
+    digest = source_digest(name, defines)
     out = os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
     if os.path.exists(out):
         return out
@@ -109,11 +141,11 @@ _SIGNATURES = {
                               + ["i"] * 3 + ["p"]),
     },
     "batched_strip": {
-        "masa_batched_strip_max_threads": [],
-        "masa_batched_strip_launch": (["p"] * 3 + ["i"] * 2 + ["p"] * 2
-                                      + ["i"] * 5 + ["p"]),
-        "masa_batched_strip_fixed_launch": (["p"] * 5 + ["i"] * 4
-                                            + ["p"] * 2 + ["i"] * 4
+        "masa_batched_strip_max_warps": ["i"],
+        "masa_batched_strip_launch": (["p"] * 3 + ["i"] * 4 + ["p"] * 2
+                                      + ["i", "p"] + ["i"] * 4 + ["p"]),
+        "masa_batched_strip_fixed_launch": (["p"] * 7 + ["i"] * 6
+                                            + ["p"] * 3 + ["i"] * 4
                                             + ["p"]),
     },
     "roofline": {
@@ -261,9 +293,102 @@ def strip_cuda(a, b, bus_h, bus_f, col_h, col_e, corner: int, *,
 strip_cuda.launches = 0
 
 
-# batched_strip_cuda's per-element fields, in the kernel's order
+# batched_strip_cuda's per-element fields, in the kernel's order (the
+# kernel's item table adds three: the element's output row, the item's
+# sub-strip and its counter)
 ELEM_FIELDS = ("i0", "h", "j0", "w", "row_code", "col_code")
-_ALPHA = 8  # rows per thread of csrc/batched_strip.cu
+# warps a block of csrc/batched_strip.cu may hold, by rows per thread
+# (masa_batched_strip_max_warps)
+BATCHED_MAX_WARPS = {8: 16, 4: 32, 2: 32}
+_BLOCK_WARPS = 4   # warps of a block of short elements
+
+
+class BatchedGeometry(NamedTuple):
+    """How one launch of the batched strip kernels is cut: ``alpha`` rows
+    per thread, ``warps`` per element (an element owns ``32 * alpha *
+    warps`` rows at a time and chains sub-strips beyond), ``per_block``
+    elements side by side in a block, and ``order``: the elements' indices
+    in dispatch order, tallest first."""
+
+    alpha: int
+    warps: int
+    per_block: int
+    order: np.ndarray
+
+    @property
+    def rows(self) -> int:
+        """Rows of one sub-strip: what an element's warps own at once."""
+        return 32 * self.alpha * self.warps
+
+
+def batched_geometry(heights, sms: int) -> BatchedGeometry:
+    """The block shape of a batched launch from its elements' heights.
+
+    The shape follows the height that holds the middle row when the
+    elements are stacked tallest first, so a few stragglers, short or
+    tall, do not size every block: a taller element chains sub-strips on
+    its warps, a shorter one leaves warps idle.  Rows per thread are as
+    many as still fill a warp's 32 lanes at that height (64 rows: 2; 128:
+    4; 256 and up: 8) and still give each of the card's ``sms`` SMs a warp:
+    on the card more rows a thread won at every level of stage 4 while the
+    lanes stayed full (fewer shuffles and ring accesses per cell) and lost
+    by half once they did not, and a launch of a few elements is bound by
+    the latency of a wavefront step, which fewer rows a thread shorten.
+    Warps per element cover that height, up to a whole block; a taller
+    element is cut into sub-strips on warps of their own
+    (``batched_items``); elements of few warps share a block of
+    ``_BLOCK_WARPS`` (the block size of short elements moved their time by
+    a few percent at most).  Tallest first, so that the long elements
+    start in the first wave and like heights sit side by side in a
+    block."""
+    h = np.asarray(heights, np.int64).reshape(-1)
+    if h.size < 1 or h.min() < 1:
+        raise ValueError("heights must be a non-empty list of rows >= 1")
+    if h.min() == h.max():
+        order, middle = np.arange(h.size), int(h[0])
+    else:
+        order = np.argsort(-h, kind="stable")
+        stacked = np.cumsum(h[order])
+        middle = int(h[order[np.searchsorted(stacked,
+                                             (int(stacked[-1]) + 1) // 2)]])
+    total = int(h.sum())
+    alpha = 2
+    for cand in (8, 4):
+        if 32 * cand <= middle and total >= 32 * cand * sms:
+            alpha = cand
+            break
+    warps = min(BATCHED_MAX_WARPS[alpha], -(-middle // (32 * alpha)))
+    return BatchedGeometry(alpha, warps, max(1, _BLOCK_WARPS // warps), order)
+
+
+def batched_items(elems: np.ndarray, geo: BatchedGeometry
+                  ) -> tuple[np.ndarray, int]:
+    """The kernel's item table for a launch cut by ``geo``, and the number
+    of counters it needs.  An item is one sub-strip of ``geo.rows`` rows
+    of one element: ``ELEM_FIELDS``, then the element's index in ``elems``
+    (its output row), the sub-strip's number and the index of its counter
+    (-1 for an element of one sub-strip).  Elements come in ``geo.order``,
+    the sub-strips of one after another, so that whoever takes an item
+    finds the sub-strip above it taken already."""
+    order = geo.order
+    n_sub = -(-elems[order, 1].astype(np.int64) // geo.rows)
+    if n_sub.max() == 1:  # nothing chained: an item per element
+        items = np.empty((len(order), len(ELEM_FIELDS) + 3), np.int32)
+        items[:, :6], items[:, 6], items[:, 7], items[:, 8] = \
+            elems[order], order, 0, -1
+        return items, 0
+    first = np.cumsum(n_sub) - n_sub  # each element's first item
+    of = np.repeat(np.arange(len(order)), n_sub)
+    sub = np.arange(len(of)) - first[of]
+    chained = (n_sub > 1)[of]
+    ctr = np.where(chained, np.cumsum(chained) - 1, -1)
+    items = np.concatenate([elems[order][of], order[of, None], sub[:, None],
+                            ctr[:, None]], 1).astype(np.int32)
+    return items, int(chained.sum())
+
+
+def _sms(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def batched_strip_cuda(a, b, elems, width: int, *, match: int,
@@ -275,10 +400,8 @@ def batched_strip_cuda(a, b, elems, width: int, *, match: int,
     ``elems`` is a host (B, 6) int array of ``ELEM_FIELDS`` per element:
     rows ``[i0, i0+h)`` of ``a`` (h >= 1) against columns ``[j0, j0+w)`` of
     ``b`` (w <= width), with InitType border codes 0-2.  Returns the last
-    rows' ``(bus_h, bus_f)``, (B, width) int32; columns past an element's
-    ``w`` hold -INF."""
-    import numpy as np
-
+    rows' ``(bus_h, bus_f)``, (B, width) int32, in the order of ``elems``;
+    columns past an element's ``w`` hold -INF (the kernel writes them)."""
     dev = a.device
     if dev.type != "cuda":
         raise ValueError(f"batched_strip_cuda needs CUDA tensors, got {dev}")
@@ -293,46 +416,46 @@ def batched_strip_cuda(a, b, elems, width: int, *, match: int,
                          f"{el.shape}")
     i0, h, j0, w, rc, cc = el.T
     width = int(width)
-    if width < 1 or (w < 0).any() or (w > width).any():
+    if width < 1 or w.min() < 0 or w.max() > width:
         raise ValueError(f"element widths must lie in [0, {width}]")
-    if (h < 1).any() or (i0 < 0).any() or (j0 < 0).any():
+    if h.min() < 1 or i0.min() < 0 or j0.min() < 0:
         raise ValueError("element heights must be >= 1, offsets >= 0")
-    if (i0.astype(np.int64) + h > a.numel()).any() \
-            or (j0.astype(np.int64) + w > b.numel()).any():
+    if (i0.astype(np.int64) + h).max() > a.numel() \
+            or (j0.astype(np.int64) + w).max() > b.numel():
         raise ValueError("an element reaches past its sequence view")
-    if not (np.isin(rc, (0, 1, 2)).all() and np.isin(cc, (0, 1, 2)).all()):
+    if min(rc.min(), cc.min()) < 0 or max(rc.max(), cc.max()) > 2:
         raise ValueError("border codes must be 0, 1 or 2 (no CUSTOM)")
     lib = load("batched_strip")
-    threads = _threads_for(int(h.max()),
-                           int(lib.masa_batched_strip_max_threads()))
+    geo = batched_geometry(h, _sms(dev))
     B = el.shape[0]
-    elems_d = torch.from_numpy(el).to(dev)
-    neg = -999999999
-    bus_h = torch.full((B, width), neg, dtype=torch.int32, device=dev)
-    bus_f = torch.full((B, width), neg, dtype=torch.int32, device=dev)
+    # the kernel's table, sent from pinned memory so that the copy is
+    # queued like the launch; a ticket and the counters where sub-strips
+    # wait for one another
+    items, counters = batched_items(el, geo)
+    items_d = torch.from_numpy(items).pin_memory().to(dev, non_blocking=True)
+    sync = torch.zeros(1 + counters, dtype=torch.int32, device=dev) \
+        if counters else None
+    bus_h = torch.empty((B, width), dtype=torch.int32, device=dev)
+    bus_f = torch.empty((B, width), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev), _launch_events("batched_strip"):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc_ = lib.masa_batched_strip_launch(
             ctypes.c_void_p(a.data_ptr()), ctypes.c_void_p(b.data_ptr()),
-            ctypes.c_void_p(elems_d.data_ptr()), B, threads,
-            ctypes.c_void_p(bus_h.data_ptr()),
-            ctypes.c_void_p(bus_f.data_ptr()), width, match, mismatch,
-            gap_open, gap_ext, ctypes.c_void_p(stream))
+            ctypes.c_void_p(items_d.data_ptr()), len(items), geo.alpha,
+            geo.warps, geo.per_block, ctypes.c_void_p(bus_h.data_ptr()),
+            ctypes.c_void_p(bus_f.data_ptr()), width,
+            ctypes.c_void_p(sync.data_ptr() if counters else 0), match,
+            mismatch, gap_open, gap_ext, ctypes.c_void_p(stream))
     if rc_ != 0:
         raise RuntimeError(
-            f"batched strip kernel launch failed: CUDA error {rc_}")
+            f"batched strip kernel launch failed: CUDA error {rc_} "
+            f"({geo.alpha} rows a thread, {geo.warps} warps x "
+            f"{geo.per_block} elements a block)")
     batched_strip_cuda.launches += 1
     return bus_h, bus_f
 
 
 batched_strip_cuda.launches = 0
-
-
-def _threads_for(h: int, max_threads: int) -> int:
-    """Threads per block of the batched kernels for elements of up to h
-    rows: enough to own every row (ALPHA each), whole warps, capped."""
-    need = -(-h // _ALPHA)
-    return min(max_threads, max(32, -(-need // 32) * 32))
 
 
 def batched_strip_fixed_cuda(a, b, col_h, col_e, bus_h, bus_f, corners, *,
@@ -372,22 +495,27 @@ def batched_strip_fixed_cuda(a, b, col_h, col_e, bus_h, bus_f, corners, *,
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     lib = load("batched_strip")
-    threads = _threads_for(h, int(lib.masa_batched_strip_max_threads()))
-    # the kernel rewrites the row above in place
-    out_h, out_f = bus_h.clone(), bus_f.clone()
+    geo = batched_geometry([h], _sms(dev))
+    out_h, out_f = torch.empty_like(bus_h), torch.empty_like(bus_f)
+    n_sub = -(-h // geo.rows)  # a chained element: a counter per sub-strip
+    sync = torch.zeros(1 + B * n_sub, dtype=torch.int32, device=dev) \
+        if n_sub > 1 else None
 
     def ptr(x):
-        return ctypes.c_void_p(x.data_ptr())
+        return ctypes.c_void_p(x.data_ptr() if x is not None else 0)
 
     with torch.cuda.device(dev), _launch_events("batched_strip_fixed"):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.masa_batched_strip_fixed_launch(
-            ptr(a), ptr(b), ptr(col_h), ptr(col_e), ptr(corners), B, h, nj,
-            threads, ptr(out_h), ptr(out_f), match, mismatch, gap_open,
+            ptr(a), ptr(b), ptr(col_h), ptr(col_e), ptr(corners), ptr(bus_h),
+            ptr(bus_f), B, h, nj, geo.alpha, geo.warps, geo.per_block,
+            ptr(out_h), ptr(out_f), ptr(sync), match, mismatch, gap_open,
             gap_ext, ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(
-            f"batched strip (fixed) kernel launch failed: CUDA error {rc}")
+            f"batched strip (fixed) kernel launch failed: CUDA error {rc} "
+            f"({geo.alpha} rows a thread, {geo.warps} warps x "
+            f"{geo.per_block} elements a block)")
     batched_strip_fixed_cuda.launches += 1
     return out_h, out_f
 

@@ -16,6 +16,7 @@ import torch
 
 from masa_tpu_torch.ops import batched_mm, kernels
 from masa_tpu_torch.ops import wavefront as wf
+from masa_tpu_torch.tools import batched_tune
 from masa_tpu_torch.types import INF, InitType, ScoreParams
 
 pytestmark = pytest.mark.cuda
@@ -225,6 +226,74 @@ def test_batched_kernel_matches_plain(cuda, seed, B, h_max, w_max):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+EDGE_CASES = list(batched_tune.edge_cases())
+
+
+@pytest.mark.parametrize("name,elems,width", EDGE_CASES,
+                         ids=[c[0] for c in EDGE_CASES])
+def test_batched_kernel_edges_match_plain(cuda, name, elems, width):
+    """A launch per height around a warp's, a block's and a chained
+    element's rows (widths 0, 1, 33, 64, 100, 130; every border code),
+    mixed heights with stragglers, one-row elements, a width of one."""
+    a, b = (torch.from_numpy(x).to(cuda)
+            for x in batched_tune.sequences(43, 1 << 15))
+    kw = dict(match=1, mismatch=-3, gap_open=3, gap_ext=2)
+    got = wf.batched_strip(a, b, elems, width, **kw)
+    want = wf.batched_strip_plain(a, b, elems, width, **kw)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("geo", batched_tune.FORCED,
+                         ids=lambda g: "x".join(map(str, g)))
+def test_batched_kernels_match_plain_at_every_geometry(cuda, geo):
+    """Each (rows per thread, warps per element, elements per block)
+    forced in place of ``batched_geometry``'s choice, on mixed heights
+    with chained stragglers and on equal shapes whose last row sits
+    mid-thread and mid-warp."""
+    kw = dict(match=2, mismatch=-1, gap_open=2, gap_ext=1)
+    a, b = (torch.from_numpy(x).to(cuda)
+            for x in batched_tune.sequences(43, 1 << 15))
+    mixed = [c for c in EDGE_CASES if c[0].startswith("mixed")
+             or c[0] in ("h=257", "h=4097")]
+    fixed = [batched_tune.fixed_inputs(np.random.default_rng(3), *shape,
+                                       cuda)
+             for shape in ((5, 257, 77), (2, 2049, 130))]
+    want_mixed = [wf.batched_strip_plain(a, b, el, width, **kw)
+                  for _, el, width in mixed]
+    want_fixed = [wf.batched_strip_fixed_plain(*args, **kw)
+                  for args in fixed]
+    with batched_tune.forced(*geo):
+        for (_, el, width), want in zip(mixed, want_mixed):
+            got = wf.batched_strip(a, b, el, width, **kw)
+            assert torch.equal(got[0], want[0])
+            assert torch.equal(got[1], want[1])
+        for args, want in zip(fixed, want_fixed):
+            got = wf.batched_strip_fixed(*args, **kw)
+            assert torch.equal(got[0], want[0])
+            assert torch.equal(got[1], want[1])
+
+
+def test_batched_outputs_keep_the_callers_order(cuda):
+    """Elements are dispatched tallest first; the outputs come back in the
+    order of ``elems``, and -INF stands past each element's width."""
+    a, b, elems = batched_inputs(8, 40, 900, 60, cuda)
+    kw = dict(match=1, mismatch=-3, gap_open=3, gap_ext=2)
+    got = wf.batched_strip(a, b, elems, 64, **kw)
+    for k in (0, 7, 39):
+        one = wf.batched_strip(a, b, elems[k:k + 1], 64, **kw)
+        assert torch.equal(got[0][k], one[0][0])
+        assert torch.equal(got[1][k], one[1][0])
+        assert bool((got[0][k, elems[k, 3]:] == NEG).all())
+        assert bool((got[1][k, elems[k, 3]:] == NEG).all())
+
+
+def test_batched_max_warps_mirror_the_kernel(cuda):
+    lib = kernels.load("batched_strip")
+    for alpha, warps in kernels.BATCHED_MAX_WARPS.items():
+        assert lib.masa_batched_strip_max_warps(alpha) == warps
+    assert lib.masa_batched_strip_max_warps(3) == 0
+
+
 def test_batched_wrapper_rejects_bad_inputs(cuda):
     a, b, elems = batched_inputs(1, 4, 10, 10, cuda)
     kw = dict(match=1, mismatch=-3, gap_open=3, gap_ext=2)
@@ -288,7 +357,8 @@ def fixed_inputs(seed, B, h, nj, dev):
 
 
 @pytest.mark.parametrize("B,h,nj", [(1, 1, 1), (3, 300, 256), (17, 64, 129),
-                                    (4, 2049, 77), (2000, 8, 33)])
+                                    (4, 2049, 77), (2000, 8, 33),
+                                    *batched_tune.fixed_cases()])
 def test_batched_fixed_kernel_matches_plain(cuda, B, h, nj):
     args = fixed_inputs(B + h + nj, B, h, nj, cuda)
     kw = dict(match=1, mismatch=-3, gap_open=3, gap_ext=2)
