@@ -19,8 +19,9 @@ Phases (any failure raises and the run exits non-zero):
      batches of mixed heights, widths and border codes, tall elements
      that chain in one block, zero widths.  The equal-shape batched strip
      kernel: CUSTOM borders, odd widths, 1 to 3000 elements, tall
-     elements that chain sub-strips; then timed at 8192 x 64 x 128.  The
-     roofline bodies at a few iterations;
+     elements that chain sub-strips; then timed at 8192 x 64 x 128.  Every
+     roofline body (the TPU tool's five and the three with the kernels'
+     own cell) at 0, 1 and 61 iterations;
   3. the golden real pairs through masa_tpu_torch.align(device="cuda"):
      real1 must score 11367 ending at (16384, 15805), real2 32466;
   4. the bench.py 1M x 1M homologous pair through the six pipeline stages
@@ -38,7 +39,12 @@ Phases (any failure raises and the run exits non-zero):
      own bound;
   6. `python -m masa_tpu_torch --test --device cuda` as a subprocess;
   7. the roofline tool (`masa_tpu_torch.tools.roofline.measure`), printed
-     as its JSON line beside the strip kernel's rate on the stage-1
+     as its JSON line: every body on a full card (SMs x the blocks the
+     runtime fits on an SM) by events around the launch alone, the least
+     of 5 with the spread, its instructions counted in the built SASS, the
+     SM clock read while a body runs; then its filling launch (the k1
+     body) against its plain version on the same inputs at the same
+     iterations, both timed, and the strip kernel's rate on the stage-1
      shape;
   8. the column split (run after phase 4, beside the CLI run): first the
      strip kernel on a streamed left border at a slab's shape, the border
@@ -53,9 +59,16 @@ Each main-path run prints, per stage, the kernels' summed milliseconds
 The kernels line counts each kernel's launches over every main-path run
 (phases 5, 7 and 8; the fork workers report theirs) and gives each
 kernel's bound: the larger of its bytes over the card's memory rate and
-its cells over the better of the roofline's mix and DPX rates measured in
-this run (for the roofline kernel, its operations over the rate the
-roofline's par body measured).  The batched strip kernel's times and
+its operations over the card's int32 peak (SMs x 64 INT32 lanes x the SM
+clock read in this run).  A Gotoh cell counts the fewest INT32-lane
+instructions the recurrence needs, whatever implements it: four (three
+add-max and a max), five where the launch tracks the best; the roofline
+kernel counts the INT32-lane instructions of its filling launch, found in
+the SASS.  Each bound line also gives two diagnostics that are no bounds:
+the share under the ruler of earlier runs (the better of the mix and DPX
+rates) and the share of the rate that the kernels' own cell code reaches
+alone (the roofline's k1 and k1n bodies).  A kernel faster than its bound
+fails the run: the ruler would be wrong.  The batched strip kernel's times and
 bound are sums over every launch of the CLI run's stage 4 (each launch
 beside its own bound under "stage4_launches"); a short kernel's time is
 taken by events around its launch alone, the least of a few.  No PyTorch call computes a Gotoh strip,
@@ -393,9 +406,8 @@ def fixed_main(dev):
 
 
 def roofline_matrix(dev):
-    """Phase 2f: each roofline body's kernel equals its plain version on
-    the TPU tool's inputs, at a few iterations; the mix body timed
-    against its plain version at 256 iterations."""
+    """Phase 2f: every roofline body's kernel equals its plain version on
+    the TPU tool's inputs, at 0, 1 and 61 iterations."""
     import torch
 
     from masa_tpu_torch.tools import roofline as rl
@@ -410,16 +422,10 @@ def roofline_matrix(dev):
             if d:
                 raise AssertionError(f"roofline {body} x{iters}: differs "
                                      f"(max |diff| {d})")
-    xs = [torch.from_numpy(x).to(dev) for x in rl.inputs("mix")]
-    timed(rl.run_cuda, "mix", xs, 256)  # warm
-    _, ms = timed(rl.run_cuda, "mix", xs, 256)
-    _, plain_ms = timed(rl.run_plain, "mix", xs, 256)
-    log(f"roofline bodies vs plain: {len(rl.BODIES)} bodies equal at 0, 1 "
-        f"and 61 iterations; mix x256 on {xs[0].numel()} lanes: kernel "
-        f"{ms:.3f} ms, plain {plain_ms:.3f} ms")
-    from masa_tpu_torch.tools.roofline import OPS
-    ops = xs[0].numel() * 256 * OPS["mix"]
-    return worst, ms, plain_ms, ops, nbytes(*xs) + 4 * xs[0].numel()
+    log(f"roofline bodies vs plain: {len(rl.BODIES)} bodies "
+        f"({', '.join(rl.BODIES)}) equal at 0, 1 and 61 iterations "
+        f"(max |diff| {worst}, tolerance 0)")
+    return worst
 
 
 def timed(fn, *args, **kw):
@@ -506,8 +512,9 @@ def main_shape(dev):
 
 def hop_shape(dev):
     """Phase 2b': the strip kernel at the shape of one stage-2 hop: 8192
-    rows against a 16384-column window, NW, the best tracked, both borders
-    pinned to the crosspoint (WITH_GAPS_OPENED), kernel and plain timed."""
+    rows against a 16384-column window, NW, both borders pinned to the
+    crosspoint (WITH_GAPS_OPENED): with the best tracked, kernel and plain
+    timed, then with nothing tracked, kernel timed."""
     import numpy as np
 
     from masa_tpu_torch import InitType, ScoreParams
@@ -527,7 +534,16 @@ def hop_shape(dev):
     log(f"stage-2 hop shape {h} x {nj} (NW, best, pinned borders): kernel "
         f"{ms:.3f} ms ({h * nj / ms / 1e6:.2f} GCUPS), plain {plain_ms:.3f} "
         f"ms, equal")
-    return err, ms, plain_ms, h * nj, strip_bytes(args, out_k)
+    # the same hop with nothing tracked, as stage 2 runs every hop whose
+    # goal cannot be reached inside it
+    kw["track_best"] = False
+    timed(wf.strip, *args, **kw)  # warm
+    out_n, ms_n = timed_best(3, wf.strip, *args, **kw)
+    err = max(err, compare(out_n, wf.strip_plain(*args, **kw),
+                           f"stage-2 hop shape {h}x{nj}, nothing tracked"))
+    log(f"stage-2 hop shape {h} x {nj} (NW, nothing tracked): kernel "
+        f"{ms_n:.3f} ms ({h * nj / ms_n / 1e6:.2f} GCUPS), equal")
+    return err, ms, plain_ms, h * nj, strip_bytes(args, out_k), ms_n
 
 
 def stage4_levels(s0, s1, cps, dev, save=None):
@@ -982,10 +998,13 @@ def module_entry():
 
 
 def roofline_phase(dev):
-    """Phase 7: the roofline tool's measurement, and the strip kernel's
-    rate on the stage-1 shape (one launch of 2^20 x 2^20, SW, best) for
-    comparison with the mix bound.  Returns the tool's launches, its line
-    and the strip kernel's milliseconds on that launch."""
+    """Phase 7: the roofline tool's measurement; its filling launch (the
+    k1 body on SMs x the blocks that fit an SM) against the plain version
+    on the same inputs at the same iterations, both timed; and the strip
+    kernel's rate on the stage-1 shape
+    (one launch of 2^20 x 2^20, SW, best).  Returns the tool's launches,
+    its line, the strip kernel's milliseconds on that launch, and the
+    roofline kernel's (max |diff|, ms, plain ms, bound ms, bytes)."""
     import numpy as np
 
     from masa_tpu_torch import InitType, ScoreParams
@@ -993,9 +1012,30 @@ def roofline_phase(dev):
     from masa_tpu_torch.tools import roofline as rl
 
     rl.run_cuda.launches = 0
+    t0 = time.time()
     line = rl.measure()
     launches = rl.run_cuda.launches
     log(json.dumps(line))
+    fill = line["filling_launch"]
+    tool_s = time.time() - t0
+    if launches <= 0:
+        raise AssertionError("the roofline tool launched no kernel")
+    # the launch the tool timed, again, against the plain version on the
+    # same inputs at the same iterations (the tool seeds them the same way)
+    xs = rl.full_inputs(fill["body"], fill["blocks"] * fill["threads"], dev)
+    got = rl.run_cuda(fill["body"], xs, fill["iterations"], fill["threads"])
+    want, plain_ms = timed(rl.run_plain, fill["body"], xs,
+                           fill["iterations"], fill["threads"])
+    err = int((got.long() - want.long()).abs().max())
+    if err:
+        raise AssertionError(f"roofline {fill['body']} at the filling "
+                             f"shape differs (max |diff| {err})")
+    log(f"roofline kernel, filling launch: {fill['body']} on "
+        f"{fill['blocks']} blocks x {fill['threads']} threads x "
+        f"{fill['iterations']} iterations: {fill['ms']:.3f} ms (least of "
+        f"{rl.REPS}, spread {100 * fill['spread']:.2f}%); plain "
+        f"{plain_ms:.1f} ms at the same iterations, equal (max |diff| 0); "
+        f"the tool took {tool_s:.1f} s")
     params = ScoreParams()
     args = strip_inputs(np.random.default_rng(23), M_1M, M_1M,
                         InitType.WITH_ZEROES, params, dev)
@@ -1007,13 +1047,43 @@ def roofline_phase(dev):
     gcups = M_1M * M_1M / ms / 1e6
     log(f"roofline: strip kernel {gcups:.1f} GCUPS on one launch of "
         f"{M_1M} x {M_1M} ({ms:.1f} ms) = "
-        f"{100 * gcups / line['mix_bound_gcups']:.1f}% of the mix bound "
-        f"{line['mix_bound_gcups']} GCUPS, "
+        f"{100 * gcups / line['cell_floor_gcups']['tracked']:.1f}% of the "
+        f"recurrence's floor ({line['cell_floor_gcups']['tracked']} GCUPS: "
+        f"5 INT32-lane instructions a cell over the int32 peak), "
+        f"{100 * gcups / line['k1_cell_gcups']:.1f}% of its own cell code "
+        f"alone (k1, {line['k1_cell_gcups']} GCUPS); under the TPU tool's "
+        f"bodies {100 * gcups / line['mix_bound_gcups']:.1f}% of mix "
+        f"({line['mix_bound_gcups']}) and "
         f"{100 * gcups / line['mix_dpx_bound_gcups']:.1f}% of the DPX mix "
-        f"bound {line['mix_dpx_bound_gcups']} GCUPS")
-    if launches <= 0:
-        raise AssertionError("the roofline tool launched no kernel")
-    return launches, line, ms
+        f"({line['mix_dpx_bound_gcups']})")
+    moved = nbytes(*xs) + 4 * xs[0].numel()
+    return launches, line, ms, (err, fill["ms"], plain_ms,
+                                fill["instruction_floor_ms"], moved)
+
+
+def bound_of(what, ms, cells, moved, rate, old_rate, code_rate):
+    """A kernel's bound from its cells and bytes: the larger of cells over
+    ``rate`` (the card's int32 peak over the fewest INT32-lane instructions
+    a cell needs) and bytes over the memory rate.  Logs it with two
+    diagnostics beside the share: the share under ``old_rate`` (the ruler
+    of earlier runs, a measured rate) and under ``code_rate`` (what the
+    kernel's own cell code reaches alone).  Raises when the kernel beat
+    its bound.  Returns (bound ms, "operations" or "bytes")."""
+    by_ops = 1e3 * cells / rate
+    by_bytes = 1e3 * moved / HBM_BYTES_PER_S
+    bound = max(by_ops, by_bytes)
+    by = "operations" if by_ops >= by_bytes else "bytes"
+    old = max(1e3 * cells / old_rate, by_bytes)
+    code = max(1e3 * cells / code_rate, by_bytes)
+    log(f"bound: {what}: {bound:.4f} ms by {by} (operations {by_ops:.4f} "
+        f"ms, bytes {by_bytes:.4f} ms); kernel {ms:.3f} ms = "
+        f"{100 * bound / ms:.1f}% of the bound's rate [no bounds: under "
+        f"the mix/DPX ruler {100 * old / ms:.1f}%, of its own cell code "
+        f"alone {100 * code / ms:.1f}%]")
+    if ms < bound:
+        raise AssertionError(f"{what} ran in {ms:.4f} ms, under its bound "
+                             f"of {bound:.4f} ms: the ruler is wrong")
+    return bound, by
 
 
 def main() -> int:
@@ -1042,8 +1112,6 @@ def main() -> int:
     log(f"card: {card}")
     block_rows = build_kernels()
     from masa_tpu_torch.ops import kernels
-    from masa_tpu_torch.tools.roofline import ALPHA as rl_alpha
-    from masa_tpu_torch.tools.roofline import OPS as rl_ops
 
     err = {"strip": kernel_matrix(dev, block_rows),
            "batched_strip": batched_matrix(dev),
@@ -1051,7 +1119,7 @@ def main() -> int:
     # per kernel: (ms, plain ms, cells or operations, bytes moved) at the
     # shape timed
     times = {}
-    err["roofline"], *times["roofline"] = roofline_matrix(dev)
+    err["roofline"] = roofline_matrix(dev)
     err_main, *times["strip"] = main_shape(dev)
     err_hop, *hop = hop_shape(dev)
     err["strip"] = max(err["strip"], err_main, err_hop)
@@ -1090,28 +1158,27 @@ def main() -> int:
     kernels.event_log = None
     module_entry()
     launches["batched_strip_fixed"] = n_fixed
-    launches["roofline"], roof, stage1_ms = roofline_phase(dev)
-    # the bounds: cells over the better of the mix and DPX rates of this
-    # run, or bytes over the memory rate, whichever is larger.  The
-    # roofline kernel's operations go over the best int32 rate the run
-    # read in the tool's own count of operations: the par body's, or a
-    # cell's 12 operations at the better cell rate (the compiler fuses
-    # add-then-max, so the cell bodies pass the par body's count).
-    cell_rate = 1e9 * max(roof["mix_bound_gcups"],
-                          roof["mix_dpx_bound_gcups"])
-    op_rate = max(1e9 * roof["par_native_ops_per_s"],
-                  cell_rate * rl_ops["mix"] / rl_alpha)
+    launches["roofline"], roof, stage1_ms, (err_fill, *filling) = \
+        roofline_phase(dev)
+    err["roofline"] = max(err["roofline"], err_fill)
+    # the bounds: cells over (the int32 peak at the clock read in this run
+    # / the fewest INT32-lane instructions a cell needs: 5 where the best is
+    # tracked, 4 where not), or bytes over the memory rate, whichever is
+    # larger; beside each, as diagnostics, the share under the ruler of
+    # earlier runs (the better of the mix and DPX rates) and of the rate
+    # the kernel's own cell code reaches alone (k1 tracked, k1n not)
+    rate = {k: 1e9 * v for k, v in roof["cell_floor_gcups"].items()}
+    code_rate = {"tracked": 1e9 * roof["k1_cell_gcups"],
+                 "untracked": 1e9 * roof["k1n_cell_gcups"]}
+    old_rate = 1e9 * max(roof["mix_bound_gcups"],
+                         roof["mix_dpx_bound_gcups"])
     # the batched kernel over every launch of stage 4: each launch against
     # its own bound, the kernels line takes the sums
     for lv in levels:
-        by_ops = 1e3 * lv["cells"] / cell_rate
-        by_bytes = 1e3 * lv["bytes"] / HBM_BYTES_PER_S
-        lv["bound_ms"] = max(by_ops, by_bytes)
-        lv["bound_by"] = "operations" if by_ops >= by_bytes else "bytes"
-        log(f"bound: batched_strip at stage-4 level {lv['level']} "
-            f"{lv['way']}: {lv['bound_ms']:.4f} ms by {lv['bound_by']}; "
-            f"kernel {lv['ms']:.3f} ms = "
-            f"{100 * lv['bound_ms'] / lv['ms']:.1f}% of the bound's rate")
+        lv["bound_ms"], lv["bound_by"] = bound_of(
+            f"batched_strip at stage-4 level {lv['level']} {lv['way']}",
+            lv["ms"], lv["cells"], lv["bytes"], rate["untracked"], old_rate,
+            code_rate["untracked"])
     if len(levels) != launches["batched_strip"] - sum(
             m["batched_strip"] for m in more):
         log(f"note: stage 4 was rebuilt as {len(levels)} launches")
@@ -1124,38 +1191,48 @@ def main() -> int:
     kernel_rows = []
     for name, (src, tpu) in KERNELS.items():
         if name == "batched_strip":
-            ms, plain_ms, bound = (sum(lv[k] for lv in levels)
-                                   for k in ("ms", "plain_ms", "bound_ms"))
-            by_ops, by_bytes = (
-                1e3 * sum(lv["cells"] for lv in levels) / cell_rate,
-                1e3 * sum(lv["bytes"] for lv in levels) / HBM_BYTES_PER_S)
+            ms, plain_ms, cells, moved = (sum(lv[k] for lv in levels)
+                                          for k in ("ms", "plain_ms",
+                                                    "cells", "bytes"))
+            bound, by = bound_of(f"{name}, the {len(levels)} launches",
+                                 ms, cells, moved, rate["untracked"],
+                                 old_rate, code_rate["untracked"])
+        elif name == "roofline":
+            # the function it computes is its body's instructions: those
+            # of its filling launch, counted in the SASS, over the INT32
+            # lanes at the clock read
+            ms, plain_ms, by_ops, moved = filling
+            fill = roof["filling_launch"]
+            cells = (fill["blocks"] * fill["threads"] * fill["iterations"]
+                     * roof["mix_alpha"])
+            bound, by = bound_of(
+                f"{name}, the filling launch of {fill['body']}", ms, cells,
+                moved, 1e3 * cells / by_ops, old_rate, code_rate["tracked"])
         else:
-            ms, plain_ms, work, moved = times[name]
-            by_ops = 1e3 * work / (op_rate if name == "roofline"
-                                   else cell_rate)
-            by_bytes = 1e3 * moved / HBM_BYTES_PER_S
-            bound = max(by_ops, by_bytes)
-        log(f"bound: {name} {bound:.4f} ms by "
-            f"{'operations' if by_ops >= by_bytes else 'bytes'} (operations "
-            f"{by_ops:.4f} ms, bytes {by_bytes:.4f} ms); kernel {ms:.3f} ms "
-            f"= {100 * bound / ms:.1f}% of the bound's rate")
+            # the strip kernel's timed shape tracks the best; the
+            # equal-shape batched kernel tracks nothing
+            ms, plain_ms, cells, moved = times[name]
+            kind = "tracked" if name == "strip" else "untracked"
+            bound, by = bound_of(f"{name} at the shape timed", ms, cells,
+                                 moved, rate[kind], old_rate, code_rate[kind])
         kernel_rows.append({
             "name": name, "route": "cuda", "source": src, "replaces": tpu,
             "launches": launches[name], "max_abs_err": err[name],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": "operations" if by_ops >= by_bytes else "bytes",
-            "library_ms": None})
-    for what, ms, cells in (("stage-2 hop 8192 x 16384", hop[0], hop[2]),
-                            (f"stage-1 launch {M_1M} x {M_1M}", stage1_ms,
-                             M_1M * M_1M)):
-        bound = 1e3 * cells / cell_rate
-        log(f"bound: strip at the {what}: {bound:.4f} ms by operations; "
-            f"kernel {ms:.3f} ms = {100 * bound / ms:.1f}% of the bound's "
-            f"rate")
+            "bound_by": by, "library_ms": None})
+    for what, ms, cells, kind in (
+            ("stage-2 hop 8192 x 16384, best tracked", hop[0], hop[2],
+             "tracked"),
+            ("stage-2 hop 8192 x 16384, nothing tracked", hop[4], hop[2],
+             "untracked"),
+            (f"stage-1 launch {M_1M} x {M_1M}, best tracked", stage1_ms,
+             M_1M * M_1M, "tracked")):
+        bound_of(f"strip at the {what}", ms, cells, 0, rate[kind], old_rate,
+                 code_rate[kind])
     kernel_rows[1]["stage4_launches"] = levels
     kernel_rows[0]["shapes"] = {
         "8192x1048576": times["strip"][0], "8192x16384": hop[0],
-        f"{M_1M}x{M_1M}": stage1_ms}
+        "8192x16384, nothing tracked": hop[4], f"{M_1M}x{M_1M}": stage1_ms}
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "masa_tpu"))
     if foreign:

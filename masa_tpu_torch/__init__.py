@@ -27,6 +27,8 @@ from masa_tpu_torch.types import (
     ScoreParams,
 )
 
+__version__ = "0.3.0"  # the project's (pyproject.toml), as masa_tpu's
+
 __all__ = ["align", "load_sequence", "AlignmentStart", "InitType",
            "Recurrence", "ScoreParams"]
 

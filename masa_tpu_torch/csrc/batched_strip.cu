@@ -68,7 +68,10 @@
 //   * The kernels are templates over ALPHA and the border kind, the chunk
 //     body over <whole warp> and <edge chunk>: the interior chunk of a
 //     warp whose rows are all valid carries no bound check.
-//   * The recurrence goes through the DPX add-max (__viaddmax_s32): the
+//   * The cell is gotoh_cell.cuh's NW cell, shared with csrc/strip.cu;
+//     csrc/roofline.cu times it alone (body k1n); the kernels' bound
+//     counts the four instructions the recurrence itself needs.
+//     The recurrence goes through the DPX add-max (__viaddmax_s32): the
 //     same int32 values as plain add and max.
 //   * Rows per thread, warps per element and elements per block follow the
 //     launch's heights (ops/kernels.batched_geometry); elements are
@@ -80,6 +83,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "gotoh_cell.cuh"
 
 namespace {
 
@@ -214,18 +219,12 @@ __device__ __forceinline__ void run_chunk(const Score& sc, const Shared& sh,
       int dg = t.dprev, oh = NEG, of = NEG;
 #pragma unroll
       for (int k = 0; k < A; ++k) {
-        const int e = __viaddmax_s32(t.hl[k], gofirst, t.el[k] - sc.ge);
-        const int f = __viaddmax_s32(vh, gofirst, vf - sc.ge);
-        const int sub = t.ch[k] == bc ? sc.match : sc.mismatch;
-        const int hv = max(__viaddmax_s32(dg, sub, e), f);
-        dg = t.hl[k];
-        t.hl[k] = hv;
-        t.el[k] = e;
-        vh = hv;
-        vf = f;
+        // the NW cell (gotoh_cell.cuh): vh, vf become this row's H and F
+        masa::gotoh_cell<false>(t.hl[k], t.el[k], dg, vh, vf, t.ch[k], bc,
+                                sc.match, sc.mismatch, gofirst, sc.ge);
         if (!WHOLE && k == last_k) {
-          oh = hv;
-          of = f;
+          oh = vh;
+          of = vf;
         }
       }
       if (WHOLE) {

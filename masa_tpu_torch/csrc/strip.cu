@@ -14,15 +14,20 @@
 //
 // What bounds it.  Operations, not bytes: a sub-strip reads 8 bytes of bus
 // and one character per column and writes 8 bytes back, for thousands of
-// cells.  A cell is about twelve instructions, nine of them on the SM's
-// integer ALU pipe (16 lanes a clock a quarter-SM): one add-max each for
-// E, F and the diagonal, one max for H, compare and select for the
-// substitution score, compare, select and max for the per-row best.  A
-// strip as tall as the card runs at about 70% of that pipe's rate: with
-// four warps a quarter-SM about half of a warp's cycles go to waiting for
-// the warp above or below (tools/strip_tune.py --profile), so the chain
-// of dependent cells in a step (ALPHA add-max/max pairs, then a shuffle)
-// is not always hidden.  A short strip (a stage-2 hop of 8192 rows) has
+// cells.  A cell is about fourteen instructions in the interior loop (8
+// rows a thread, SW, best tracked), ten of them on the SM's INT32 lanes
+// (16 a clock a quarter-SM): one add-max each for E, F and the diagonal,
+// one max for H, compare and select for the substitution score, compare,
+// select and max for the per-row best, and the selects of the exchange;
+// the two subtracts go to the FMA pipe.  The bare cell (gotoh_cell.cuh
+// alone: the roofline's k1 body) needs nine, the recurrence itself five
+// (three add-max, a max, a max for the best: the kernel's bound).  A strip
+// as tall as the card runs at about 70% of the bare cell's rate and 37% of
+// that bound on an H100: with four
+// warps a quarter-SM about half of a warp's cycles go to waiting for the
+// warp above or below (tools/strip_tune.py --profile), so the chain of
+// dependent cells in a step (ALPHA add-max/max pairs, then a shuffle) is
+// not always hidden.  A short strip (a stage-2 hop of 8192 rows) has
 // too few rows to fill the card: it is bound by the latency of one
 // wavefront step times the columns plus the pipeline's fill (about 64
 // steps per warp of the chain).
@@ -46,11 +51,13 @@
 //     sub-strip body over <full block> and the chunk body over <edge>: the
 //     interior chunk of a full block carries no bound check.  The caller's
 //     arguments pick the instance.
-//   * The recurrence goes through the DPX instructions (__viaddmax_s32,
-//     __vimax_s32_relu): the same int32 values (plain add and max; -INF
-//     is -999999999, far from overflow).  Measured against max(a + b, c)
-//     in plain C this is worth about 2%: the compiler fuses an add
-//     followed by a max by itself.
+//   * The cell is gotoh_cell.cuh's, which csrc/batched_strip.cu sweeps too
+//     and csrc/roofline.cu times alone (its k1, k1n and k1w bodies say
+//     what this spelling of the cell costs).  The recurrence goes through
+//     the DPX instructions (__viaddmax_s32, __vimax_s32_relu): the same
+//     int32 values (plain add and max; -INF is -999999999, far from
+//     overflow).  Measured against max(a + b, c) in plain C this is worth
+//     about 2%: the compiler fuses an add followed by a max by itself.
 //   * Rows per block follow the strip's height (ALPHA 8, 4 or 2 and 1 to 8
 //     compute warps; the rule is ops/kernels.strip_geometry), so a short
 //     strip spreads over many warps and tens of SMs.
@@ -62,6 +69,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "gotoh_cell.cuh"
 
 namespace {
 
@@ -122,15 +131,6 @@ __device__ __forceinline__ int ld_acquire(const int* p) {
 __device__ __forceinline__ void st_release(int* p, int v) {
   asm volatile("st.release.gpu.global.s32 [%0], %1;"
                :: "l"(p), "r"(v) : "memory");
-}
-
-// max(a + b, c) and max(a, b, 0): one DPX instruction each on sm_90.
-__device__ __forceinline__ int addmax(int a, int b, int c) {
-  return __viaddmax_s32(a, b, c);
-}
-
-__device__ __forceinline__ int max_relu(int a, int b) {
-  return __vimax_s32_relu(a, b);
 }
 
 #ifdef MASA_PROFILE
@@ -200,29 +200,19 @@ __device__ __forceinline__ void run_chunk(const Args& p, Shared& sh,
       int dg = t.dprev;
 #pragma unroll
       for (int k = 0; k < A; ++k) {
-        const int e = addmax(t.hl[k], gofirst, t.el[k] - p.ge);
-        const int f = addmax(vh, gofirst, vf - p.ge);
-        const int sub = t.ch[k] == bc ? p.match : p.mismatch;
-        const int d = addmax(dg, sub, e);
-        const int hv = SW ? max_relu(d, f) : max(d, f);
-        dg = t.hl[k];
-        t.hl[k] = hv;
-        t.el[k] = e;
-        vh = hv;
-        vf = f;
-        if (TRACK && hv > t.bv[k]) {
-          t.bv[k] = hv;
-          t.bj[k] = j;
-        }
+        // the cell (gotoh_cell.cuh): vh, vf become this row's H and F
+        masa::gotoh_cell<SW>(t.hl[k], t.el[k], dg, vh, vf, t.ch[k], bc,
+                             p.match, p.mismatch, gofirst, p.ge);
+        if (TRACK) masa::track_best(vh, j, t.bv[k], t.bj[k]);
         if (FLUSH && (t.fmask >> k & 1)) {
           const int q = t.fq0 + __popc(t.fmask & ((1 << k) - 1));
           const size_t o = (size_t)q * nj + j;
-          p.rows_h[o] = hv;
-          p.rows_f[o] = f;
+          p.rows_h[o] = vh;
+          p.rows_f[o] = vf;
         }
         if (!FULL && k == last_k) {
-          oh = hv;
-          of = f;
+          oh = vh;
+          of = vf;
         }
       }
       if (FULL) {

@@ -1,7 +1,8 @@
 """Build and bind the hand-written Hopper kernels (``csrc/*.cu``).
 
 Each kernel source (``csrc/strip.cu``, ``csrc/batched_strip.cu``,
-``csrc/roofline.cu``) is compiled with ``nvcc`` for ``sm_90a`` into its own
+``csrc/roofline.cu``; all three include ``csrc/gotoh_cell.cuh``, the DP
+cell) is compiled with ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, at first use, into
 ``masa_tpu_torch/_build/`` (named by the source's hash, so an edited source
 rebuilds), and bound with ``ctypes``.  Nothing here runs when the module is
@@ -150,6 +151,7 @@ _SIGNATURES = {
     },
     "roofline": {
         "masa_roofline_launch": ["i"] * 4 + ["p"] * 3,
+        "masa_roofline_blocks_per_sm": ["i"] * 2,
     },
 }
 

@@ -21,6 +21,9 @@ heights, widths and the flush cadence are runtime values.
 tensors.  ``strip_plain`` is a row sweep (one cumulative max per row, the
 algorithm of ``masa_tpu/ops/rowsweep.sweep``), so it shares nothing with
 the kernel's anti-diagonal order and serves as its independent check.
+``ops/rowsweep`` gives the row sweeps the reference's entry names; it
+calls ``strip_plain`` and ``batched_sweep_plain`` and keeps no sweep of
+its own.
 """
 
 from __future__ import annotations
@@ -196,44 +199,70 @@ def border_h_codes(codes: torch.Tensor, k: torch.Tensor, gap_open: int,
                                    -k * gap_ext))
 
 
-def batched_strip_plain(a, b, elems, width: int, *, match: int,
-                        mismatch: int, gap_open: int,
+def batched_sweep_plain(a, b, i0, j0, r0, col_code, bus_h, bus_f, rows, *,
+                        sw: bool, match: int, mismatch: int, gap_open: int,
                         gap_ext: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Many score-only NW strips as one row sweep over a (B, width) batch
-    (the algorithm of ``masa_tpu/ops/rowsweep.batched_sweep_engine``): the
-    contract of ``kernels.batched_strip_cuda`` on any device.  Each row
-    advances every element at once; an element stops changing after its
-    own ``h`` rows.  Columns past an element's ``w`` see clamped
-    characters (nothing flows leftward) and end as -INF."""
+    """Many score-only strips as one row sweep over a (B, width) batch, on
+    any device (the algorithm of ``masa_tpu/ops/rowsweep.
+    batched_sweep_engine``; ``ops/rowsweep`` and ``batched_strip_plain``
+    both call it).  Element e covers the columns ``[j0, j0 + width)`` of
+    ``b`` from the row bus ``bus_h``/``bus_f`` (B, width) and advances
+    ``rows[e]`` rows of ``a`` from row ``i0 + r0`` on; its left border is
+    synthesized from ``col_code`` at border positions ``r0``, ``r0 + 1``,
+    ...  Each step advances every element at once; an element stops
+    changing after its own rows.  Characters past a sequence's end are
+    clamped.  Returns the (H, F) bus after those rows, int32."""
     dev = a.device
     i64 = torch.int64
     go, ge = gap_open, gap_ext
-    el = torch.as_tensor(elems, dtype=i64).to(dev)
-    i0, h, j0, w, rc, cc = el.unbind(1)
+    i0, j0, r0, cc, rows = (torch.as_tensor(x, dtype=i64).to(dev)
+                            for x in (i0, j0, r0, col_code, rows))
+    hp, fp = bus_h.to(i64), bus_f.to(i64)
+    width = hp.shape[1]
     cols = torch.arange(width, device=dev, dtype=i64)
     bch = b[(j0[:, None] + cols).clamp(max=b.numel() - 1)]
     jge = cols[1:] * ge
     ramp = (cols + 1) * ge
-    hp = border_h_codes(rc, (cols + 1).expand(len(el), -1), go, ge)
-    fp = torch.full_like(hp, NEG)
-    for r in range(int(h.max()) if len(el) else 0):
-        act = (r < h)[:, None]
-        ach = a[(i0 + r).clamp(max=a.numel() - 1)]
-        kr = torch.full_like(cc, r)
-        up_left = border_h_codes(cc, kr, go, ge)  # H(row above, border)
-        left = border_h_codes(cc, kr + 1, go, ge)  # this row's border H
+    for r in range(int(rows.max()) if len(rows) else 0):
+        act = (r < rows)[:, None]
+        ach = a[(i0 + r0 + r).clamp(max=a.numel() - 1)]
+        up_left = border_h_codes(cc, r0 + r, go, ge)  # H(row above, border)
+        left = border_h_codes(cc, r0 + r + 1, go, ge)  # this row's border H
         f = torch.maximum(hp - go, fp) - ge
         diag = torch.cat([up_left[:, None], hp[:, :-1]], 1)
         d = torch.maximum(
             diag + torch.where(bch == ach[:, None], match, mismatch), f)
+        if sw:
+            d.clamp_(min=0)
         y = torch.cat([(left - go).clamp(min=NEG)[:, None],
                        d[:, :-1] - go + jge], 1)
         e = torch.cummax(y, 1).values - ramp
         hp = torch.where(act, torch.maximum(d, e), hp)
         fp = torch.where(act, f, fp)
+    return hp.to(torch.int32), fp.to(torch.int32)
+
+
+def batched_strip_plain(a, b, elems, width: int, *, match: int,
+                        mismatch: int, gap_open: int,
+                        gap_ext: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Many score-only NW strips as one row sweep over a (B, width) batch
+    (``batched_sweep_plain`` from each element's synthesized first row):
+    the contract of ``kernels.batched_strip_cuda`` on any device.  Columns
+    past an element's ``w`` see clamped characters (nothing flows
+    leftward) and end as -INF."""
+    dev = a.device
+    el = torch.as_tensor(elems, dtype=torch.int64).to(dev)
+    i0, h, j0, w, rc, cc = el.unbind(1)
+    cols = torch.arange(width, device=dev, dtype=torch.int64)
+    hp = border_h_codes(rc, (cols + 1).expand(len(el), -1), gap_open,
+                        gap_ext)
+    hp, fp = batched_sweep_plain(
+        a, b, i0, j0, torch.zeros_like(i0), cc, hp, torch.full_like(hp, NEG),
+        h, sw=False, match=match, mismatch=mismatch, gap_open=gap_open,
+        gap_ext=gap_ext)
     keep = cols < w[:, None]
-    return (torch.where(keep, hp, NEG).to(torch.int32),
-            torch.where(keep, fp, NEG).to(torch.int32))
+    neg = torch.tensor(NEG, dtype=torch.int32, device=dev)
+    return torch.where(keep, hp, neg), torch.where(keep, fp, neg)
 
 
 def batched_strip(a, b, elems, width: int, *, match: int, mismatch: int,

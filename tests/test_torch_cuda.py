@@ -379,7 +379,8 @@ def test_batched_fixed_wrapper_rejects_bad_inputs(cuda):
         kernels.batched_strip_fixed_cuda(*args[:6], args[6].cpu(), **kw)
 
 
-@pytest.mark.parametrize("body", ["par", "ser", "mix", "dpx", "m16"])
+@pytest.mark.parametrize("body", ["par", "ser", "mix", "dpx", "m16", "k1",
+                                  "k1n", "k1w"])
 @pytest.mark.parametrize("iters", [0, 1, 257])
 def test_roofline_kernel_matches_plain(cuda, body, iters):
     from masa_tpu_torch.tools import roofline as rl
@@ -389,3 +390,90 @@ def test_roofline_kernel_matches_plain(cuda, body, iters):
     got = rl.run(body, xs, iters)
     assert rl.run_cuda.launches == before + 1
     assert torch.equal(got, rl.run_plain(body, xs, iters))
+
+
+@pytest.mark.parametrize("body", ["k1", "k1n", "k1w"])
+@pytest.mark.parametrize("threads", [32, 64, 128])
+def test_roofline_cell_bodies_at_every_block_size(cuda, body, threads):
+    """A cell body's column characters are per block."""
+    from masa_tpu_torch.tools import roofline as rl
+
+    xs = [torch.from_numpy(x).to(cuda) for x in rl.inputs(body)]
+    assert torch.equal(rl.run_cuda(body, xs, 33, threads),
+                       rl.run_plain(body, xs, 33, threads))
+
+
+def test_roofline_launch_alone_counts_and_fills_the_card(cuda):
+    """``prepare`` once, ``launch`` many times: each launch counts one and
+    rewrites the prepared output; the filling shape (SMs x the blocks the
+    runtime fits on an SM) equals the plain version too."""
+    from masa_tpu_torch.tools import roofline as rl
+
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    per_sm = rl.blocks_per_sm("k1")
+    assert 1 <= per_sm <= 8
+    xs = rl.full_inputs("k1", sms * per_sm * rl.THREADS, cuda)
+    before = rl.run_cuda.launches
+    p = rl.prepare("k1", xs)
+    assert rl.run_cuda.launches == before and p.blocks == sms * per_sm
+    want = rl.run_plain("k1", xs, 20)
+    for n in (1, 2):
+        assert torch.equal(rl.launch(p, 20), want)
+        assert rl.run_cuda.launches == before + n
+    ms, spread = rl.time_launch(p, 64, 3)
+    assert ms > 0 and spread >= 0
+    with pytest.raises(ValueError, match="whole warps"):
+        rl.prepare("k1w", [x[:48] for x in xs], 48)
+
+
+def test_roofline_measure_reads_the_card(cuda):
+    """The tool's line: the TPU tool's keys and the new ones; par reaches
+    the INT32 lanes' peak at the clock read, every cell body comes near
+    its instruction floor without passing it, and none reaches the floor
+    of the recurrence (the kernels' bound)."""
+    from masa_tpu_torch.tools import roofline as rl
+
+    line = rl.measure()
+    for key in ("par_native_ops_per_s", "ser_latency_ns", "mix_alpha",
+                "mix_rs", "mix_bound_gcups", "mix16_bound_gcups",
+                "mix_dpx_bound_gcups", "k1_cell_gcups", "k1n_cell_gcups",
+                "k1w_gcups", "cell_floor_gcups", "instructions",
+                "sm_clock_mhz", "sm_clock_max_mhz", "int32_peak_ops_per_s",
+                "timings", "filling_launch", "card", "power_limit", "note"):
+        assert key in line, key
+    share = line["share_of_instruction_floor"]
+    assert 0.9 <= share["par"] <= 1.01, share
+    for body in ("mix", "dpx", "k1", "k1n", "k1w"):
+        assert 0.8 <= share[body] <= 1.0, share
+    assert line["k1w_gcups"] < line["k1_cell_gcups"] \
+        < line["k1n_cell_gcups"]
+    floor = line["cell_floor_gcups"]
+    assert floor["tracked"] == round(line["int32_peak_ops_per_s"] / 5, 1)
+    assert line["k1_cell_gcups"] < floor["tracked"] < floor["untracked"]
+    assert max(line["k1n_cell_gcups"], line["mix_bound_gcups"],
+               line["mix_dpx_bound_gcups"]) < floor["untracked"]
+    fill = line["filling_launch"]
+    assert fill["ms"] >= fill["instruction_floor_ms"] and fill["ms"] >= 5.0
+    assert all(t["spread"] < 0.05 for t in line["timings"].values())
+    assert 60 <= line["par_alu_lanes_per_clock_on_one_sm"]["16"] <= 66
+
+
+def test_roofline_counts_its_instructions_in_the_sass(cuda):
+    """Every body and the kernels' own inner loops are found in the built
+    libraries; a cell is at least its three add-max, its max, its compare
+    and its select."""
+    from masa_tpu_torch.tools import roofline as rl
+
+    instr = rl.instructions()
+    assert set(rl.BODIES) <= set(instr) and len(instr) == len(
+        rl.BODIES) + len(rl.KERNEL_LOOPS)
+    for name, counts in instr.items():
+        if counts["per"] == "cell" and name != "m16":
+            assert 6 <= counts["total"] <= 20, (name, counts)
+            assert counts["alu"] >= 4, (name, counts)
+    assert instr["k1"]["alu"] > instr["k1n"]["alu"] >= 4
+    assert instr["k1w"]["lsu"] > instr["k1"]["lsu"]
+    loops = rl.cell_loops(kernels.build("strip"))
+    assert len(loops) == 24  # ALPHA 8, 4, 2 x SW x TRACK x FLUSH
+    assert all(6 <= v["alu"] <= 20 and len(v["digest"]) == 12
+               for v in loops.values())

@@ -3,7 +3,8 @@
 ``masa_tpu_torch`` keeps a copy of every JAX-free module of ``masa_tpu``
 that it needs (types, scoring, the oracle, the sequence and alignment
 files, the native library, the row codecs, the cell streams, the work
-directory's files, stage 6).  Each case here sends the same seeded numpy
+directory's files, stage 6, the grid and the block aligner, the TCP
+ring).  Each case here sends the same seeded numpy
 inputs through the reference's function and the port's and expects equal
 results: tolerance 0, as everything is integer or bytes.  Values cross
 between the packages only through ``masa_tpu_torch.convert``.
@@ -421,7 +422,83 @@ def run_job_manager(pkg, tmp_path):
     return [ladder, files, borders, m._col_border(7)]
 
 
+def run_grid(pkg):
+    g, t = mod(pkg, "core.grid"), mod(pkg, "types")
+    p = t.Partition(3, 4, 203, 154)
+    out = [g.split_evenly(10, 3), g.split_evenly(2, 5), g.split_evenly(0, 2)]
+    for grid in (g.Grid.with_block_size(p, 64, 48),
+                 g.Grid.with_block_count(p, 3, 7), g.Grid(p)):
+        out.append([grid.splits_i, grid.splits_j, grid.nbi, grid.nbj,
+                    grid.block(grid.nbi - 1, grid.nbj - 1),
+                    grid.block_of(100, 100), grid.block_of(0, 0),
+                    grid.block_of(999, 999)])
+    return out
+
+
+def run_block_aligner(pkg):
+    """A pruned SW partition and a CUSTOM-border NW one through the block
+    aligner (behind the lock wrapper) under the package's own manager."""
+    ba, mg, t = (mod(pkg, "core.block_aligner"), mod(pkg, "core.manager"),
+                 mod(pkg, "types"))
+    o, sc = mod(pkg, "ops.oracle"), mod(pkg, "stages.core")
+    s0, s1 = pair(13, 300, 280, rate=0.05)
+    out = []
+    dense = o.dp_matrix(s0, s1, t.ScoreParams(),
+                        t.Recurrence.NEEDLEMAN_WUNSCH, t.InitType.WITH_GAPS,
+                        t.InitType.WITH_GAPS)
+    for rec, part, row, col, prune in (
+            (t.Recurrence.SMITH_WATERMAN, (0, 0, 300, 280),
+             (t.InitType.WITH_ZEROES, None), (t.InitType.WITH_ZEROES, None),
+             True),
+            (t.Recurrence.NEEDLEMAN_WUNSCH, (50, 60, 300, 280),
+             (t.InitType.CUSTOM, (dense.h[50, 60:], dense.f[50, 60:])),
+             (t.InitType.CUSTOM, (dense.h[50:, 60], dense.e[50:, 60])),
+             False)):
+        al = ba.SafeAligner(ba.BlockAligner(block_height=48, block_width=56))
+        mgr = mg.AlignerManager(al, t.ScoreParams())
+        mgr.set_recurrence_type(rec)
+        mgr.set_first_row(*row)
+        mgr.set_first_column(*col)
+        mgr.last_column_wanted = True
+        store = sc.SpecialRowStore()
+        mgr.set_special_rows_store(store)
+        mgr.set_special_row_interval(96)
+        mgr.set_block_pruning(prune)
+        al.set_sequences(s0, s1)
+        mgr.align_partition(t.Partition(*part))
+        out.append([{r: store.get(r) for r in store.rows()}, mgr.last_row,
+                    mgr.last_column, list(mgr.best_scores), al.stats.cells,
+                    al.stats.pruned_cells,
+                    dataclasses.asdict(al.get_capabilities())])
+    assert out[0][5] > 0  # the SW case did prune
+    return out
+
+
+def run_netring(pkg):
+    """Three nodes on OS-picked ports: join, gossip, the token, a score and
+    a status query (bounded: the module's calls time out after 5 s)."""
+    nr = mod(pkg, "parallel.netring")
+    nodes = [nr.NetRing(k) for k in (4, 2, 9)]
+    try:
+        for n in nodes[1:]:
+            n.join(*nodes[0].addr)
+        for n in nodes:
+            n.discover()
+        nodes[2].notify_score(7, 8, 90)
+        nodes[1].stage = 3
+        return [[sorted(n.peers) for n in nodes],
+                nodes[0].ring_test(timeout=5.0),
+                nodes[1].ring_test(timeout=5.0),
+                [tuple(n.best_score) for n in nodes], nodes[0].status_of(2),
+                nodes[0]._call(nodes[1].addr, {"cmd": "NOPE"})]
+    finally:
+        for n in nodes:
+            n.close()
+
+
 CASES = {
+    "core.grid": run_grid, "core.block_aligner": run_block_aligner,
+    "parallel.netring": run_netring,
     "types": run_types, "models.scoring": run_scoring,
     "ops.oracle": run_oracle, "ops.smallsw": run_smallsw,
     "native.bindings": run_native, "io.rowcodec": run_rowcodec,
@@ -495,6 +572,17 @@ def test_files_cross_packages(wr, rd, tmp_path):
     back = mod(rd, "biology.alignment").read_cgff(str(tmp_path / "a"))
     assert plain(back.gaps) == plain(aln.gaps)
     assert back.raw_score == aln.raw_score
+
+
+def test_version_is_the_projects():
+    """``masa_tpu_torch.__version__`` is the project's, as masa_tpu's."""
+    import re
+
+    with open(os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "pyproject.toml")) as fh:
+        project = re.search(r'^version\s*=\s*"([^"]+)"', fh.read(), re.M)
+    assert masa_tpu_torch.__version__ == masa_tpu.__version__ \
+        == project.group(1) == "0.3.0"
 
 
 def test_convert_round_trips():

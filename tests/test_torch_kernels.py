@@ -62,14 +62,20 @@ def test_wrappers_refuse_cpu_tensors():
 
 
 def test_build_names_follow_source_and_defines(tmp_path, monkeypatch):
-    """A library is named by its source's hash and the variant's defines,
-    lives under the build directory, and an existing one is not rebuilt
-    (no compiler is needed to find it)."""
+    """A library is named by the hash of its source and of the cell's
+    header it includes, and by the variant's defines, lives under the
+    build directory, and an existing one is not rebuilt (no compiler is
+    needed to find it)."""
     import hashlib
 
     monkeypatch.setattr(kernels, "BUILD_DIR", str(tmp_path))
-    with open(kernels.SOURCES["strip"], "rb") as fh:
-        src = fh.read()
+    files = [kernels.SOURCES["strip"], os.path.join(
+        os.path.dirname(kernels.SOURCES["strip"]), "gotoh_cell.cuh")]
+    assert kernels.source_files("strip") == files
+    src = b""
+    for name in files:
+        with open(name, "rb") as fh:
+            src += fh.read()
     names = {}
     for defines in ((), ("MASA_PROFILE",)):
         digest = hashlib.sha256(
