@@ -53,12 +53,25 @@ Phases (any failure raises and the run exits non-zero):
      `--fork 2` (796634), real2 through `--split 1,2,1 --traceback
      speculative` and through `parallel.split.align_oversize` with
      16384-column slabs (32466), each with its seconds per stage and its
-     launches per kernel.
+     launches per kernel;
+  9. the sharded mode (beside phase 8): stage 1 of the 1M pair as the
+     diagonal pipeline at the strip height the sweep chose
+     (``parallel/sharded.CUDA_ROWS``, ``tools/sharded_tune.py``) over 1 and
+     2 slabs, seconds and kernel ms; the CLI with ``--split 1`` and
+     ``--split 2`` (pruning on, the pruned strips per slab) on the 1M pair
+     (796634, stage 5 verified, per stage beside the monolithic CLI run of
+     phase 5) and real2 with ``--split 3 --traceback speculative``
+     (32466); two processes of ``masa_tpu_torch.tools.multihost_worker``
+     over gloo on the card, a 2^15 pair, equal to one process; then the
+     strip kernel on a round's hand-off: the border slab 1 holds for round
+     1 is slab 0's last column of round 0 (exact), and the kernel equals
+     its plain version on the first 8192 rows of slab 1's first strip
+     with that border.
 Each main-path run prints, per stage, the kernels' summed milliseconds
 (CUDA events around every launch) beside the stage's wall time.
 The kernels line counts each kernel's launches over every main-path run
-(phases 5, 7 and 8; the fork workers report theirs) and gives each
-kernel's bound: the larger of its bytes over the card's memory rate and
+(phases 5, 7, 8 and 9; the fork and multihost workers report theirs) and
+gives each kernel's bound: the larger of its bytes over the card's memory rate and
 its operations over the card's int32 peak (SMs x 64 INT32 lanes x the SM
 clock read in this run).  A Gotoh cell counts the fewest INT32-lane
 instructions the recurrence needs, whatever implements it: four (three
@@ -73,7 +86,8 @@ bound are sums over every launch of the CLI run's stage 4 (each launch
 beside its own bound under "stage4_launches"); a short kernel's time is
 taken by events around its launch alone, the least of a few.  No PyTorch call computes a Gotoh strip,
 so library_ms is null.  Before the last line the script checks that no
-module of JAX or of the JAX package was imported.  The last two lines are
+module of JAX or of the JAX package was imported (here and in the
+multihost workers) and that the sharded modules were.  The last two lines are
 a JSON summary of the kernels and the contract line {"ok": true,
 "device": {...}}.  Without a CUDA device the script exits non-zero and
 prints no result.
@@ -102,7 +116,7 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                  "tools/roofline.py:86"),  # bench_kernel.make_call
 }
 M_1M = 1 << 20
-SCORE_1M = 796634  # masa_tpu's full six-stage score on this pair
+SCORE_1M = 796634  # masa_tpu's full six-stage score on the 1M pair
 NEG = -999999999
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 
@@ -697,40 +711,6 @@ def golden_pairs():
             raise AssertionError(f"{name}: expected {score} at {end}")
 
 
-def homolog(rng, seq, sub_rate=0.08, indel_every=1 << 16):
-    """bench.py's homolog: point substitutions + sparse short indels."""
-    import numpy as np
-
-    bases = np.frombuffer(b"ACGT", np.uint8)
-    out = seq.copy()
-    idx = rng.random(len(seq)) < sub_rate
-    out[idx] = rng.choice(bases, int(idx.sum())).astype(np.uint8)
-    parts = []
-    prev = 0
-    for cut in range(indel_every, len(out), indel_every):
-        parts.append(out[prev:cut])
-        if rng.random() < 0.5:
-            parts.append(rng.choice(bases, int(rng.integers(1, 8))
-                                    ).astype(np.uint8))
-            prev = cut
-        else:
-            prev = cut + int(rng.integers(1, 8))
-    parts.append(out[prev:])
-    return np.concatenate(parts)
-
-
-def bench_pair():
-    """The 1M x 1M pair exactly as bench.py builds it."""
-    import numpy as np
-
-    rng = np.random.default_rng(0)
-    bases = np.frombuffer(b"ACGT", np.uint8)
-    s0 = rng.choice(bases, size=M_1M).astype(np.uint8)
-    rng.choice(bases, size=M_1M)  # bench.py's s1 draw, kept for the stream
-    h1 = homolog(np.random.default_rng(1), s0, indel_every=1 << 16)
-    return s0, h1
-
-
 def full_run(s0, s1):
     """Phase 4: the six stages on the 1M pair through align_pair, timed
     and counted per stage.  Stage 3 densifies to max_cells_stage5 and
@@ -887,8 +867,9 @@ def cli_run(fa, fb, tmp):
     if launches1["batched_strip"] <= 0:
         raise AssertionError("the CLI's traceback launched no batched "
                              "strip kernel")
-    return {"strip": launches0["strip"],
-            "batched_strip": launches1["batched_strip"]}, cps3
+    return ({"strip": launches0["strip"],
+             "batched_strip": launches1["batched_strip"]}, cps3,
+            stage_seconds(first + second))
 
 
 def need_launches(what, launches, names=("strip", "batched_strip")):
@@ -979,6 +960,187 @@ def oversize_real2(tmp):
         raise AssertionError("real2 through align_oversize: expected 32466")
     need_launches("align_oversize", launches, ("strip",))
     return launches
+
+
+def sharded_stage1_phase(s0, s1):
+    """Phase 12: the sharded mode's stage 1 on the 1M pair at the strip
+    height the sweep chose (``sharded.CUDA_ROWS``), score only, pruning
+    off, over 1 and 2 slabs on the card: seconds, launches and the strip
+    kernel's summed ms.  Returns the launches and, per slab count, (kernel
+    ms, launches, cells a launch, bytes a launch) for the bound."""
+    import torch
+
+    from masa_tpu_torch.ops import kernels
+    from masa_tpu_torch.parallel import sharded
+    from masa_tpu_torch.parallel.mesh import make_mesh
+
+    R = sharded.CUDA_ROWS
+    launches, rounds, line = 0, {}, []
+    for D in (1, 2):
+        kernels.strip_cuda.launches = 0
+        kernels.drain_events()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = sharded.sharded_stage1(s0, s1, make_mesh(D))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        n = kernels.strip_cuda.launches
+        ms = kernels.drain_events().get("strip", 0.0)
+        if res.best != SCORE_1M:
+            raise AssertionError(f"sharded stage 1 over {D}: best "
+                                 f"{res.best}, expected {SCORE_1M}")
+        if n <= 0:
+            raise AssertionError(f"sharded stage 1 over {D} launched no "
+                                 f"strip kernel")
+        launches += n
+        W = -(-len(s1) // D)
+        # a strip reads its rows of a, its columns of b, the bus and the
+        # border, and writes the bus, the last column and its row bests
+        rounds[D] = (ms, n, R * W, R + W + 16 * W + 16 * R + 8 * R)
+        line.append(f"D={D} {secs:.2f} s ({n} launches, kernel "
+                    f"{ms:.1f} ms, {ms / n:.2f} ms a launch)")
+    log(f"sharded stage 1, 1M pair, R={R} (the sweep's choice, "
+        f"tools/sharded_tune.py): " + "; ".join(line))
+    return launches, rounds
+
+
+def sharded_cli(fa, fb, tmp, score, extra, what, mono_secs=None):
+    """Phases 13-15: the sharded mode through the CLI (``--split N``):
+    the pipeline's stage 1 on the card, the slab traceback, stages 3-6.
+    The score line, stage 5 verified, per-stage seconds (beside the
+    monolithic CLI run of this call), pruned strips per slab and
+    launches."""
+    argv = [fa, fb, "--work-dir", os.path.join(tmp, "w"), *extra]
+    out, secs, launches = run_cli(argv, quiet=())
+    nsh = extra[extra.index("--split") + 1]
+    for want in (f"stage5: score={score} verified",
+                 f"alignment score: {score}  (sharded over {nsh} devices"):
+        if want not in out:
+            raise AssertionError(f"{what} lacks {want!r}")
+    pruned = re.search(r"pruned strips (\[[\d, ]*\])", out).group(1)
+    log(f"{what}: score {score} in {secs:.2f} s; per stage "
+        + json.dumps(stage_seconds(out))
+        + (f" (monolithic CLI run: {json.dumps(mono_secs)})"
+           if mono_secs else "")
+        + f"; pruned strips per slab {pruned}; launches "
+        + json.dumps(launches))
+    need_launches(what, launches)
+    return launches
+
+
+def two_process_phase(tmp):
+    """Phase 16: two processes on the card, each running
+    ``python -m masa_tpu_torch.tools.multihost_worker`` over gloo on
+    localhost with ``--device cuda`` on a 2^15 pair (512-row strips, one
+    slab a process): the best and the final row equal one process running
+    the same two slabs.  The workers count their own launches and report
+    the modules they imported."""
+    import socket
+
+    import numpy as np
+
+    from masa_tpu_torch import ScoreParams
+    from masa_tpu_torch.ops import kernels
+    from masa_tpu_torch.ops import wavefront as wf
+    from masa_tpu_torch.parallel.mesh import make_mesh
+    from masa_tpu_torch.parallel.sharded import sharded_stage1
+    from masa_tpu_torch.tools import multihost_worker
+
+    size = 1 << 15
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        coord = f"127.0.0.1:{sk.getsockname()[1]}"
+    out = os.path.join(tmp, "mh.json")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.time()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "masa_tpu_torch.tools.multihost_worker",
+         coord, "2", str(pid), out, str(size), "--device", "cuda"],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for pid in range(2)]
+    errs = []
+    try:
+        for p in procs:
+            _, se = p.communicate(timeout=300)
+            errs.append((p.returncode, se[-2000:]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    secs = time.time() - t0
+    if any(rc for rc, _ in errs):
+        raise AssertionError(f"a multihost worker failed: {errs}")
+    with open(out) as fh:
+        res = json.load(fh)
+    s0, s1 = multihost_worker.pair(size)
+    saved = kernels.strip_cuda.launches
+    one = sharded_stage1(s0, s1, make_mesh(2), wf.StripConfig(rows=512),
+                         ScoreParams())
+    kernels.strip_cuda.launches = saved  # the reference run is no main path
+    if res["best"] != one.best or res["last_h"] != [int(x)
+                                                    for x in one.last_h]:
+        raise AssertionError(f"two processes: best {res['best']}, one "
+                             f"process {one.best}")
+    if res["foreign_modules"]:
+        raise AssertionError(f"a worker imported {res['foreign_modules']}")
+    if res["launches"]["strip"] <= 0:
+        raise AssertionError("the workers launched no strip kernel")
+    log(f"two processes x 1 slab on {res['device']} over gloo, {size} x "
+        f"{size}: best {res['best']} = one process's {one.best}, final "
+        f"rows equal, in {secs:.1f} s (process start included); launches "
+        + json.dumps(res["launches"]))
+    return {"strip": res["launches"]["strip"], "batched_strip": 0}
+
+
+def handoff_phase(s0, s1, dev):
+    """Phase 17: the strip kernel on a round's hand-off.  A 2-slab
+    pipeline on the card runs round 0; the column slab 1 holds for round 1
+    equals slab 0's last column of its strip 0, launched again alone
+    (device tensors, exact).  Then the kernel against ``strip_plain`` on the
+    first 8192 rows of slab 1's first strip with that border, every
+    output.  Returns (max |diff|, ms, plain ms)."""
+    import torch
+
+    from masa_tpu_torch import ScoreParams
+    from masa_tpu_torch.ops import kernels
+    from masa_tpu_torch.ops import wavefront as wf
+    from masa_tpu_torch.parallel import sharded
+    from masa_tpu_torch.parallel.mesh import make_mesh
+
+    params = ScoreParams()
+    saved = kernels.strip_cuda.launches
+    pipe = sharded.ShardedPipeline(s0, s1, make_mesh(2), None, params)
+    pipe.run_round(0)
+    slab0, slab1 = pipe.slabs
+    R, W = pipe.R, pipe.W
+    kw = dict(match=params.match, mismatch=params.mismatch,
+              gap_open=params.gap_open, gap_ext=params.gap_ext, sw=True,
+              track_best=True, store_lastcol=True)
+    bus_h, bus_f = wf.init_bus(0, W, params.gap_open, params.gap_ext, dev)
+    zero = torch.zeros(R, dtype=torch.int32, device=dev)
+    neg = torch.full((R,), NEG, dtype=torch.int32, device=dev)
+    alone = wf.strip(pipe.a[slab0.dev][:R], slab0.b, bus_h, bus_f, zero,
+                     neg, 0, **kw)
+    got_h, got_e = slab1.col
+    if not (got_h.is_cuda and torch.equal(got_h, alone.lastcol_h)
+            and torch.equal(got_e, alone.lastcol_e)):
+        raise AssertionError("hand-off: slab 1's border is not slab 0's "
+                             "last column")
+    h = 8192
+    args = (pipe.a[slab1.dev][:h], slab1.b, bus_h, bus_f,
+            got_h[:h].contiguous(), got_e[:h].contiguous(), 0)
+    timed(wf.strip, *args, **kw)  # warm
+    out_k, ms = timed(wf.strip, *args, **kw)
+    out_p, plain_ms = timed(wf.strip_plain, *args, **kw)
+    kernels.strip_cuda.launches = saved  # checks, no main path
+    err = compare(out_k, out_p, f"hand-off {h} x {W}")
+    log(f"hand-off: slab 1's round-1 border = slab 0's round-0 last column "
+        f"({R} rows, exact); kernel on the first {h} rows of slab 1's "
+        f"first strip ({h} x {W}) {ms:.3f} ms, plain {plain_ms:.1f} ms, "
+        f"max |diff| {err}")
+    return err, ms, plain_ms
 
 
 def module_entry():
@@ -1127,6 +1289,8 @@ def main() -> int:
     err["batched_strip_fixed"] = max(err["batched_strip_fixed"], err_fixed)
     kernels.event_log = []  # time every launch of the main-path runs
     golden_pairs()
+    from masa_tpu_torch.tools.pairs import bench_pair
+
     s0, s1 = bench_pair()
     log(f"1M pair: {len(s0)} x {len(s1)}")
     err_sb, _, _ = streamed_border(s0, s1, dev)
@@ -1137,7 +1301,8 @@ def main() -> int:
         fa, fb = os.path.join(tmp, "a.fa"), os.path.join(tmp, "b.fa")
         write_fasta(fa, "bench s0", s0)
         write_fasta(fb, "bench s1", s1)
-        launches, cps3 = cli_run(fa, fb, os.path.join(tmp, "cli"))
+        launches, cps3, mono_secs = cli_run(fa, fb,
+                                            os.path.join(tmp, "cli"))
         err_lvl, levels = stage4_levels(s0, s1, cps3, dev, save_stage4)
         err["batched_strip"] = max(err["batched_strip"], err_lvl)
         more = [
@@ -1152,6 +1317,24 @@ def main() -> int:
                       "real2 --split 1,2,1 --traceback speculative"),
             oversize_real2(tmp),
         ]
+        # the sharded mode (--split N): its stage 1 at the chosen R, the
+        # CLI over 1, 2 and 3 slabs, two processes, a round's hand-off
+        n_sh, sh_rounds = sharded_stage1_phase(s0, s1)
+        more += [
+            {"strip": n_sh, "batched_strip": 0},
+            sharded_cli(fa, fb, os.path.join(tmp, "sh1"), SCORE_1M,
+                        ["--split", "1"], "--split 1 1M pair", mono_secs),
+            sharded_cli(fa, fb, os.path.join(tmp, "sh2"), SCORE_1M,
+                        ["--split", "2"], "--split 2 1M pair", mono_secs),
+            sharded_cli(os.path.join(g, "real2_a.fa"),
+                        os.path.join(g, "real2_b.fa"),
+                        os.path.join(tmp, "sh3"), 32466,
+                        ["--split", "3", "--traceback", "speculative"],
+                        "real2 --split 3 --traceback speculative"),
+            two_process_phase(tmp),
+        ]
+        err_ho, _, _ = handoff_phase(s0, s1, dev)
+        err["strip"] = max(err["strip"], err_ho)
     for m in more:
         for k in launches:
             launches[k] += m[k]
@@ -1229,14 +1412,25 @@ def main() -> int:
              M_1M * M_1M, "tracked")):
         bound_of(f"strip at the {what}", ms, cells, 0, rate[kind], old_rate,
                  code_rate[kind])
+    # the strip kernel a round of the sharded pipeline, against its bound
+    for D, (ms, n, cells, moved) in sh_rounds.items():
+        bound_of(f"strip, a sharded round over {D} slab(s) "
+                 f"({cells} cells a launch, mean of {n})", ms / n, cells,
+                 moved, rate["tracked"], old_rate, code_rate["tracked"])
     kernel_rows[1]["stage4_launches"] = levels
     kernel_rows[0]["shapes"] = {
         "8192x1048576": times["strip"][0], "8192x16384": hop[0],
-        "8192x16384, nothing tracked": hop[4], f"{M_1M}x{M_1M}": stage1_ms}
+        "8192x16384, nothing tracked": hop[4], f"{M_1M}x{M_1M}": stage1_ms,
+        **{f"sharded round, {D} slab(s), {cells} cells": ms / n
+           for D, (ms, n, cells, _) in sh_rounds.items()}}
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "masa_tpu"))
     if foreign:
         raise AssertionError(f"imported besides the port: {foreign[:8]}")
+    for mod in ("masa_tpu_torch.parallel.sharded",
+                "masa_tpu_torch.parallel.mesh"):
+        if mod not in sys.modules:
+            raise AssertionError(f"the sharded phases did not import {mod}")
     log(f"chip_smoke: every phase passed in {time.time() - t_start:.1f} s, "
         f"builds included; no module of jax or masa_tpu was imported")
     log(json.dumps({"kernels": kernel_rows}))

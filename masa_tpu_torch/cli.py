@@ -6,11 +6,12 @@ Usage:  python -m masa_tpu_torch [options] seq0.fasta seq1.fasta
 The options, the work directory and the printed lines are masa_tpu's.
 PyTorch has no platform switch in its environment, so the device is an
 option: ``--device cuda`` (the default; raises when no GPU is present) or
-``--device cpu``.  The column-split modes run on it: weighted slabs
-(``--split W1,..,Wn``), one worker process per slab (``--fork``), and the
-split of inputs wider than one run may be.  The sharded mode (``--split
-N``, ``--coordinator``) is not ported yet (ROADMAP Queue 1 item 10): it
-stops with an error, never running on one device instead.
+``--device cpu``.  The multi-device modes run on it: weighted slabs
+(``--split W1,..,Wn``), one worker process per slab (``--fork``), the
+split of inputs wider than one run may be, and the sharded mode
+(``--split N``: stage 1 as a diagonal pipeline over N column slabs, one
+a card, several processes joined by ``--coordinator``, ``--num-hosts``
+and ``--host-id`` over torch.distributed).
 """
 
 from __future__ import annotations
@@ -24,9 +25,6 @@ from masa_tpu_torch.core.capabilities import AlignerCapabilities
 from masa_tpu_torch.types import AlignmentStart, ScoreParams
 
 HEADER = "masa_tpu_torch: long-sequence alignment engine on PyTorch/CUDA"
-NOT_PORTED = ("is not ported to masa_tpu_torch yet (ROADMAP Queue 1 item 10, "
-              "the sharded mode over torch.distributed); use masa_tpu for "
-              "it")
 
 _STARTS = {
     "*": AlignmentStart.ANYWHERE,
@@ -113,9 +111,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "CPU")
     # multi-device
     p.add_argument("--split", default="0",
-                   help="W1,..,Wn: stage 1 over weighted column slabs, one "
-                        "after another on --device; N (the sharded mode) "
-                        "is not ported")
+                   help="N: stage 1 sharded over N column slabs in a "
+                        "diagonal pipeline (one a card; on the CPU, or "
+                        "more slabs than cards, they share a device); "
+                        "W1,..,Wn: stage 1 over weighted column slabs, "
+                        "one after another on --device")
     p.add_argument("--fork", default=None,
                    help="N or W1,..,Wn: one worker process per weighted "
                         "column slab, wired by localhost sockets and the "
@@ -126,9 +126,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="stage-2 strategy of --split/--fork: pipelined "
                         "right-to-left slab marching or speculative "
                         "per-slab prediction (libmasa.cpp:698-757)")
+    # multi-process: join the torch.distributed group (gloo) before
+    # building the mesh; the slabs split over the processes in order
     p.add_argument("--coordinator", default=None,
-                   help="host:port of process 0 of a multi-host sharded "
-                        "run (not ported)")
+                   help="host:port of process 0 for multi-process sharded "
+                        "runs (--split N)")
     p.add_argument("--num-hosts", type=int, default=1)
     p.add_argument("--host-id", type=int, default=0)
     p.add_argument("--test", action="store_true",
@@ -168,10 +170,9 @@ def main(argv=None) -> int:
     if "--test" in argv:
         return _self_test(_early_device(argv))
     if "--list-devices" in argv:
-        from masa_tpu_torch.utils.devices import list_devices
+        from masa_tpu_torch.utils.devices import format_device_list
 
-        for d in list_devices():
-            print(f"{d['platform']}:{d['id']}  {d['kind']}")
+        print(format_device_list())
         return 0
     parser = build_parser()
     args = parser.parse_args(argv)
@@ -190,10 +191,9 @@ def main(argv=None) -> int:
                          f"got {args.fork!r}")
         if len(fork_weights) == 1:
             fork_weights = [1.0] * int(fork_weights[0])
-    if args.coordinator:
-        parser.error(f"--coordinator {NOT_PORTED}")
-    if not fork_weights and len(split_weights) == 1 and split_weights[0]:
-        parser.error(f"--split N {NOT_PORTED}")
+    # --split N shards over N slabs (masa_tpu: int(N), so --split 0.5 is off)
+    n_sharded = 0 if fork_weights or len(split_weights) > 1 \
+        else int(split_weights[0])
     print(HEADER)
 
     from masa_tpu_torch.biology.sequence import Sequence, SequenceModifiers
@@ -250,8 +250,11 @@ def main(argv=None) -> int:
     fmt = args.output_format if args.output_format != "binary" else "text"
     local = args.alignment_start == "*" and args.alignment_end is None
     caps = AlignerCapabilities()
-    column_split = (fork_weights or len(split_weights) > 1
-                    or len(seq1) > caps.maximum_seq1_len)
+    column_split = (fork_weights or len(split_weights) > 1 or (
+        not n_sharded and len(seq1) > caps.maximum_seq1_len))
+    if n_sharded and not local:
+        parser.error("--split only supports local alignment "
+                     "(--alignment-start '*' and no --alignment-end)")
     if column_split and not local:
         parser.error("--fork, weighted --split and inputs wider than "
                      f"{caps.maximum_seq1_len} bp (the column split) only "
@@ -266,6 +269,8 @@ def main(argv=None) -> int:
     if len(split_weights) > 1:
         return _weighted_split(args, job, seq0, seq1, split_weights, fmt,
                                log)
+    if n_sharded:
+        return _sharded(args, job, seq0, seq1, n_sharded, fmt, log)
     if len(seq1) > caps.maximum_seq1_len:
         from masa_tpu_torch.parallel.split import align_oversize
 
@@ -386,6 +391,54 @@ def _weighted_split(args, job, seq0, seq1, weights, fmt, log) -> int:
     print(f"alignment score: {aln.raw_score}  "
           f"(weighted column split {widths}; "
           f"matches={aln.matches} mismatches={aln.mismatches} "
+          f"gaps={aln.gap_opens}/{aln.gap_extensions})")
+    return 0
+
+
+def _sharded(args, job, seq0, seq1, nsh, fmt, log) -> int:
+    """--split N: join the process group (--coordinator, --num-hosts,
+    --host-id), shard stage 1 over an N-slab mesh on job.device, then the
+    slab traceback (--traceback) and stages 3-6 with the work directory's
+    artifacts (masa_tpu/cli.py's sharded branch)."""
+    from masa_tpu_torch.parallel import sharded
+    from masa_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
+    from masa_tpu_torch.stages import runner
+
+    initialize_distributed(args.coordinator, args.num_hosts, args.host_id)
+    mesh = make_mesh(nsh, device=job.device)
+    params, prune = job.cfg.params, not args.no_block_pruning
+    if args.stage_1 or args.no_flush:
+        res = sharded.sharded_stage1(seq0, seq1, mesh, params=params,
+                                     prune=prune)
+        print(f"stage1 (sharded over {nsh} devices): best={res.best}")
+        return 0
+    secs = {}
+    rows = sharded.default_config(mesh.devices[0]).rows
+
+    def on_stage(name, seconds, out):
+        secs[name] = seconds
+        if name == "stage1":
+            log(f"stage1: sharded over {nsh} devices, {rows}-row strips: "
+                f"best={out.best}, pruned strips "
+                f"{[int(x) for x in out.pruned_strips]} in {seconds:.2f}s")
+        elif name == "stage2":
+            log(f"stage2: {len(out)} crosspoints ({args.traceback}) in "
+                f"{seconds:.2f}s")
+        elif name in ("stage3", "stage4"):
+            log(f"{name}: {len(out)} crosspoints in {seconds:.2f}s")
+        elif name == "stage5":
+            log(f"stage5: score={out.raw_score} verified in {seconds:.2f}s")
+
+    _, aln = sharded.sharded_align(
+        seq0, seq1, mesh, params=params, prune=prune,
+        traceback=args.traceback, max_cells_stage5=job.cfg.stage5_max_cells,
+        state_dir=job.path("sharded"), max_partition=args.maximum_partition,
+        on_stage=on_stage)
+    runner.finish_alignment(job, seq0, seq1, aln, fmt=fmt, log=log,
+                            elapsed=secs)
+    print(f"alignment score: {aln.raw_score}  "
+          f"(sharded over {nsh} devices; matches={aln.matches} "
+          f"mismatches={aln.mismatches} "
           f"gaps={aln.gap_opens}/{aln.gap_extensions})")
     return 0
 

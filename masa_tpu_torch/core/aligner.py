@@ -45,6 +45,15 @@ class Aligner(abc.ABC):
     def set_manager(self, manager) -> None:
         self.manager = manager
 
+    def get_fork_weights(self, count: int) -> list[float]:
+        """Per-fork slab weights (IAligner::getForkWeights): the probed
+        throughputs of the CUDA cards, cycled to ``count`` forks
+        (cuda_util.cpp:191 getGPUWeights)."""
+        from masa_tpu_torch.utils.devices import device_weights
+
+        w = device_weights(probe=True)
+        return [w[k % len(w)] for k in range(count)]
+
     def initialize(self) -> None:
         pass
 

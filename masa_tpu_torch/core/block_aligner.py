@@ -22,10 +22,7 @@ TPU path) and a home for block-granular features.
 `SafeAligner` is the AbstractAlignerSafe analogue
 (libmasa/aligners/AbstractAlignerSafe.cpp:27-136): it serializes the
 life-cycle and dispatch calls of a thread-unsafe aligner behind one lock
-so multi-threaded callers can share it.  It forwards the port's aligner
-contract (``core/aligner.Aligner``), which has no ``get_fork_weights``: the
-reference's probes JAX devices, and the port's fork mode takes its
-weights from the command line.
+so multi-threaded callers can share it.
 """
 
 from __future__ import annotations
@@ -194,6 +191,9 @@ class SafeAligner(Aligner):
 
     def get_capabilities(self) -> AlignerCapabilities:
         return self.inner.get_capabilities()
+
+    def get_fork_weights(self, count: int) -> list[float]:
+        return self.inner.get_fork_weights(count)
 
     def set_manager(self, manager) -> None:
         with self._lock:

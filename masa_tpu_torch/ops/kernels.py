@@ -232,14 +232,19 @@ def strip_cuda(a, b, bus_h, bus_f, col_h, col_e, corner: int, *,
                match: int, mismatch: int, gap_open: int, gap_ext: int,
                sw: bool, track_best: bool = False,
                store_lastcol: bool = False, flush_every: int = 0,
-               max_ctas: int = 0):
+               max_ctas: int = 0, flags: list | None = None):
     """Launch the strip kernel (see ``csrc/strip.cu`` for the contract).
 
     ``a`` (h,) and ``b`` (nj,) are uint8; the buses (nj,) and the left
     border (h,) are int32, all on one CUDA device.  Returns the raw outputs
     ``(bus_h, bus_f, best_v, best_j, last_h, last_e, rows_h, rows_f)``;
     the unrequested ones are None.  ``max_ctas`` > 0 caps the persistent
-    blocks (0: as many as the card holds)."""
+    blocks (0: as many as the card holds).
+
+    The kernel's error flag is read on the host after the launch, which
+    waits for the card.  With ``flags`` (a list) the flag, a (1,) device
+    tensor, is appended to it instead, so that a caller can issue more
+    launches first; it must then pass the values to ``check_flags``."""
     dev = b.device
     if dev.type != "cuda":
         raise ValueError(f"strip_cuda needs CUDA tensors, got {dev}")
@@ -286,13 +291,21 @@ def strip_cuda(a, b, bus_h, bus_f, col_h, col_e, corner: int, *,
     if rc != 0:
         raise RuntimeError(f"strip kernel launch failed: CUDA error {rc}")
     strip_cuda.launches += 1
-    if int(sync[-1].item()):
-        raise RuntimeError("strip kernel: a sub-strip waited over 10 s for "
-                           "the bus of the sub-strip above it")
+    if flags is not None:
+        flags.append(sync[-1:])
+    else:
+        check_flags([int(sync[-1].item())])
     return out_h, out_f, best_v, best_j, last_h, last_e, rows_h, rows_f
 
 
 strip_cuda.launches = 0
+
+
+def check_flags(values) -> None:
+    """Raise if any strip kernel error flag read back is set."""
+    if any(int(v) for v in values):
+        raise RuntimeError("strip kernel: a sub-strip waited over 10 s for "
+                           "the bus of the sub-strip above it")
 
 
 # batched_strip_cuda's per-element fields, in the kernel's order (the

@@ -71,11 +71,14 @@ class StripOut:
 def merge_best(best_v: torch.Tensor, best_j: torch.Tensor) -> torch.Tensor:
     """Reduce per-row captures (value, first j reaching it) to (score, i,
     j): the largest value, the smallest row among those, and that row's
-    j.  Runs on the tensors' device (no host transfer)."""
+    j.  Runs on the tensors' device with no host transfer: the row is
+    gathered by a 1-element index, since indexing by a 0-dim tensor reads
+    the index back to the host (a sync after every launch)."""
     score = best_v.max()
     rows = torch.arange(best_v.numel(), device=best_v.device)
     i = torch.where(best_v == score, rows, best_v.numel()).min()
-    return torch.stack([score.long(), i, best_j[i].long()])
+    j = best_j.gather(0, i.view(1)).squeeze(0)
+    return torch.stack([score.long(), i, j.long()])
 
 
 def strip_out(bus_h, bus_f, best_v, best_j, last_h, last_e, rows_h,
@@ -151,9 +154,10 @@ def strip_plain(a, b, bus_h, bus_f, col_h, col_e, corner: int, *,
 def strip(a, b, bus_h, bus_f, col_h, col_e, corner: int, *, match: int,
           mismatch: int, gap_open: int, gap_ext: int, sw: bool,
           track_best: bool = False, store_lastcol: bool = False,
-          flush_every: int = 0) -> StripOut:
+          flush_every: int = 0, flags: list | None = None) -> StripOut:
     """One strip: the plain version for CPU tensors, the Hopper kernel for
-    CUDA tensors (which raises if it cannot build or launch)."""
+    CUDA tensors (which raises if it cannot build or launch).  ``flags``:
+    see ``kernels.strip_cuda`` (the plain version has no error flag)."""
     kw = dict(match=match, mismatch=mismatch, gap_open=gap_open,
               gap_ext=gap_ext, sw=sw, track_best=track_best,
               store_lastcol=store_lastcol, flush_every=flush_every)
@@ -161,7 +165,8 @@ def strip(a, b, bus_h, bus_f, col_h, col_e, corner: int, *, match: int,
         return strip_plain(a, b, bus_h, bus_f, col_h, col_e, corner, **kw)
     if b.device.type == "cuda":
         return strip_out(*kernels.strip_cuda(a, b, bus_h, bus_f, col_h,
-                                             col_e, corner, **kw))
+                                             col_e, corner, flags=flags,
+                                             **kw))
     raise ValueError(f"no strip implementation for device {b.device}")
 
 

@@ -477,3 +477,43 @@ def test_roofline_counts_its_instructions_in_the_sass(cuda):
     assert len(loops) == 24  # ALPHA 8, 4, 2 x SW x TRACK x FLUSH
     assert all(6 <= v["alu"] <= 20 and len(v["digest"]) == 12
                for v in loops.values())
+
+
+@pytest.mark.parametrize("ndev", [1, 3])
+def test_sharded_stage1_on_the_card_matches_cpu(cuda, ndev):
+    """The sharded pipeline's strips on the card (deferred error flags,
+    one read-back a round) against the same pipeline's plain strips:
+    every slab's endpoint, last row, special rows and received border,
+    with a partial tail strip and a width not divisible by 3; pruning
+    counts too."""
+    from masa_tpu_torch.parallel import mesh, sharded
+
+    rng = np.random.default_rng(31)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    s0 = rng.choice(bases, 2900).astype(np.uint8)
+    s1 = np.where(rng.random(2900) < 0.1, rng.choice(bases, 2900), s0)[:2897]
+    cfg = wf.StripConfig(rows=512)
+    got = sharded.sharded_stage1_full(s0, s1, mesh.make_mesh(ndev), cfg,
+                                      ScoreParams(), prune=True)
+    want = sharded.sharded_stage1_full(
+        s0, s1, mesh.make_mesh(ndev, device="cpu"), cfg, ScoreParams(),
+        prune=True)
+    assert (got.best, got.best_i, got.best_j) == (want.best, want.best_i,
+                                                  want.best_j)
+    assert list(got.pruned_strips) == list(want.pruned_strips)
+    for g, w in zip(got.parts, want.parts):
+        assert (g.best, g.best_i, g.best_j) == (w.best, w.best_i, w.best_j)
+        assert np.array_equal(g.last_h, w.last_h)
+        assert g.specials.rows() == w.specials.rows()
+        for r in w.specials.rows():
+            assert all(np.array_equal(x, y) for x, y in
+                       zip(g.specials.get(r), w.specials.get(r)))
+        if w.first_col is not None:
+            assert np.array_equal(g.first_col[0], w.first_col[0])
+
+
+def test_sharded_align_on_the_card(cuda):
+    """The full sharded alignment with its traceback on the card."""
+    from masa_tpu_torch.tools.dryrun_multichip import dryrun_multichip
+
+    assert dryrun_multichip(3, "cuda") == 600

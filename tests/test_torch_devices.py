@@ -9,7 +9,7 @@ from masa_tpu_torch.utils import devices
 
 def test_cpu_resolves_and_is_listed():
     assert devices.resolve_device("cpu") == torch.device("cpu")
-    assert {"id": 0, "platform": "cpu", "kind": "cpu"} in \
+    assert {"id": 0, "platform": "cpu", "kind": "cpu", "process": 0} in \
         devices.list_devices()
 
 

@@ -625,3 +625,31 @@ def test_port_entry_points_take_port_types():
     ref = masa_tpu.ops.oracle.dp_rows(s0, s1, convert.to_ref(p, *REF))
     assert aln.raw_score == ref.best
     assert type(aln).__module__ == "masa_tpu_torch.biology.alignment"
+
+
+def test_device_helpers_match_masa_tpu(monkeypatch):
+    """utils/devices against masa_tpu's on the CPU: the device listing's
+    format (masa_tpu lists the conftest's 8 CPU devices, the port its one
+    CPU), uniform weights, and ``get_fork_weights`` cycling them over the
+    forks (masa_tpu's probe times 8 virtual CPU devices, so both are held
+    to their uniform weights here)."""
+    import masa_tpu.core.aligner
+    import masa_tpu.utils.devices as jdev
+    from masa_tpu_torch.core import aligner, block_aligner
+    from masa_tpu_torch.utils import devices
+
+    mine = devices.format_device_list().splitlines()
+    ref = jdev.format_device_list().splitlines()
+    assert mine[0] == ref[0] and mine[-1] == ref[1] \
+        == "  [0] cpu cpu (process 0)"
+    assert devices.device_weights() == jdev.device_weights()[:1] == [1.0]
+    assert devices.device_weights(probe=True) == [1.0]  # no CUDA card
+    uniform = jdev.device_weights
+    monkeypatch.setattr(jdev, "device_weights",
+                        lambda probe=False, reps=3: uniform())
+    got = aligner.CPUAligner().get_fork_weights(5)
+    assert got == masa_tpu.core.aligner.CPUAligner().get_fork_weights(5) \
+        == [1.0] * 5
+    assert block_aligner.SafeAligner(aligner.CPUAligner()) \
+        .get_fork_weights(3) == [1.0] * 3
+    assert devices.select_device(3, "cpu").type == "cpu"

@@ -161,6 +161,46 @@ def test_split_cli_runs_with_jax_blocked(tmp_path):
             f"matches=") in r.stdout, r.stdout
 
 
+BLOCKED_SHARDED = r"""
+import sys
+
+class NoJax:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "masa_tpu"):
+            raise ImportError(f"{name} is blocked in this test")
+
+sys.meta_path.insert(0, NoJax())
+from masa_tpu_torch.cli import main
+from masa_tpu_torch.tools.dryrun_multichip import dryrun_multichip
+
+assert main(sys.argv[1:]) == 0
+assert dryrun_multichip(2, "cpu") == 600
+foreign = [m for m in sys.modules
+           if m.split(".")[0] in ("jax", "jaxlib", "masa_tpu")]
+assert not foreign, foreign
+"""
+
+
+def test_sharded_runs_with_jax_blocked(tmp_path):
+    """``--split 2`` (the sharded mode: a 2-slab pipeline, the slab
+    traceback, stages 3-6) and the sharded dry run, in one child process
+    with ``import jax`` and ``import masa_tpu`` made to fail."""
+    from masa_tpu.ops import oracle
+
+    s0, s1 = _blocked_fastas(tmp_path)
+    r = subprocess.run(
+        [sys.executable, "-c", BLOCKED_SHARDED, "--device", "cpu",
+         str(tmp_path / "a.fa"), str(tmp_path / "b.fa"),
+         "--work-dir", str(tmp_path / "w"), "--split", "2"],
+        cwd=REPO, env=_env(), capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    best = oracle.dp_rows(s0, s1).best
+    assert (f"alignment score: {best}  (sharded over 2 devices; "
+            f"matches=") in r.stdout, r.stdout
+    assert "dryrun_multichip(2) on cpu: full alignment score=600" \
+        in r.stdout, r.stdout
+
+
 # imported by every fork worker at start-up (site's sitecustomize hook):
 # blocks JAX and checks at exit that nothing imported it
 SITECUSTOMIZE = r"""

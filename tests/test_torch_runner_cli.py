@@ -368,18 +368,6 @@ class TestCLI:
                               "--stage-1", "--backend", "numpy"], tmp_path)
         assert mine[-1] == ref[-1] == f"best score: {N} at ({N},{N})"
 
-    @pytest.mark.parametrize("flag", [
-        ["--split", "2"], ["--split", "2", "--num-hosts", "2", "--host-id",
-                           "1"], ["--coordinator", "localhost:1"]])
-    def test_multi_device_modes_stop(self, fastas, tmp_path, capsys, flag):
-        """The sharded mode is not ported: it stops with an error naming
-        the queue item left (the multi-host flags parse)."""
-        with pytest.raises(SystemExit) as e:
-            main(list(fastas) + flag + ["--device", "cpu"])
-        assert e.value.code == 2
-        err = capsys.readouterr().err
-        assert "ROADMAP Queue 1 item 10" in err and "sharded" in err
-
     def test_oversize_input_stops(self, fastas, tmp_path, capsys,
                                   monkeypatch):
         """The column split of an oversize input aligns locally only, as
@@ -451,6 +439,52 @@ class TestColumnSplitCLI:
         assert score == [ln for ln in ref if ln.startswith("alignment")]
         assert score[0].startswith(SCORE_42)
         same_artifacts(str(tmp_path / "port"), str(tmp_path / "ref"))
+
+
+class TestShardedCLI:
+    """--split N (the sharded mode) through both CLIs on the seed-42 pair:
+    masa_tpu's slab cut (W = 750 on 4 slabs) and strip height (4096 rows),
+    so the same crosspoint and alignment files byte for byte and the same
+    lines."""
+
+    def test_matches_masa_tpu(self, seed42_fastas, tmp_path):
+        mine, ref = run_both(seed42_fastas + ["--split", "4"], tmp_path)
+        assert mine[-1] == ref[-1]
+        assert mine[-1].startswith(SCORE_42 + "sharded over 4 devices; ")
+        assert "stage5: score=2204 verified" in " ".join(mine)
+        same_artifacts(str(tmp_path / "port"), str(tmp_path / "ref"))
+        assert os.path.exists(tmp_path / "port" / "sharded" /
+                              "sharded_carry.npz")
+
+    def test_stage1_only(self, seed42_fastas, tmp_path):
+        mine, ref = run_both(seed42_fastas + ["--split", "4", "--stage-1"],
+                             tmp_path)
+        assert mine[-1] == ref[-1] == ("stage1 (sharded over 4 devices): "
+                                       "best=2204")
+
+    def test_global_alignment_stops(self, seed42_fastas, tmp_path, capsys):
+        """Only local alignment shards, in both packages: a parser error
+        (exit 2) for --alignment-start '!'."""
+        for name, fn, extra in (("port", main, ["--device", "cpu"]),
+                                ("ref", jmain, [])):
+            with pytest.raises(SystemExit) as e:
+                fn(seed42_fastas + ["--split", "2", "--alignment-start", "!",
+                                    "--work-dir", str(tmp_path / name)]
+                   + extra)
+            assert e.value.code == 2, name
+            assert "--split only supports local alignment" in \
+                capsys.readouterr().err
+
+    def test_list_devices(self, capsys):
+        """masa_tpu's listing: a header, then one line a device with its
+        process (the conftest gives masa_tpu 8 CPU devices; the port lists
+        its CPU once)."""
+        assert main(["--list-devices"]) == 0
+        mine = capsys.readouterr().out.splitlines()
+        assert jmain(["--list-devices"]) == 0
+        ref = capsys.readouterr().out.splitlines()
+        assert mine[0] == ref[0] == "available devices:"
+        assert mine[-1] == ref[1] == "  [0] cpu cpu (process 0)"
 
 
 def test_cli_self_test():

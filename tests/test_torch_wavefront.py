@@ -208,3 +208,22 @@ def test_merge_best_tie_break():
     v = torch.tensor([3, 9, 9, 1], dtype=torch.int32)
     j = torch.tensor([5, 7, 2, 0], dtype=torch.int32)
     assert wf.merge_best(v, j).tolist() == [9, 1, 7]
+
+
+def test_merge_best_reads_no_index_back(monkeypatch):
+    """The row's j is gathered, never selected by a 0-dim tensor index: a
+    select reads the index back to the host (on CUDA, a sync after every
+    launch, which kept the cards of a sharded round from overlapping)."""
+    v = torch.tensor([1, 4, 4], dtype=torch.int32)
+    j = torch.tensor([0, 6, 1], dtype=torch.int32)
+    selects = []
+    getitem = torch.Tensor.__getitem__
+
+    def spy(self, index):
+        if isinstance(index, torch.Tensor) and index.dim() == 0:
+            selects.append(index)
+        return getitem(self, index)
+
+    monkeypatch.setattr(torch.Tensor, "__getitem__", spy)
+    assert wf.merge_best(v, j).tolist() == [4, 1, 6]
+    assert not selects
