@@ -29,10 +29,14 @@ Phases (any failure raises and the run exits non-zero):
      verified, the re-score equal, strip-kernel launches in stages 1, 2 and
      3 (stage 4 stops at isqrt(max_cells_stage5) and may find nothing to
      split after stage 3);
-  5. the CLI on the same pair, written as FASTA files: `--stage-1`, then
-     the full run resuming it (stage 1 reported as already executed, score
-     796634, stage 5 verified), strip launches in the first call and
-     batched launches in the second; per-stage times and pruned cells;
+  5. the CLI on the same pair, written as FASTA files: `--stage-1` (block
+     pruning on, the CLI's default: its pruned cells and their share of
+     m n are printed, and none fails the run), the same `--stage-1` again
+     in another work directory (its special rows, crosspoint and pruned
+     cells must be the first run's, byte for byte), then the full run
+     resuming the first (stage 1 reported as already executed, score
+     796634, stage 5 verified), strip launches in the first two calls and
+     batched launches in the last; per-stage times;
      then the batched kernel at that run's own shapes: every launch of
      stage 4, forward and reverse, level by level, rebuilt from its
      stage-3 crosspoints, each timed against its plain version and its
@@ -45,7 +49,13 @@ Phases (any failure raises and the run exits non-zero):
      SM clock read while a body runs; then its filling launch (the k1
      body) against its plain version on the same inputs at the same
      iterations, both timed, and the strip kernel's rate on the stage-1
-     shape;
+     shape; then the CLI's stage-1 launch on the 1M pair with pruning
+     inside the launch and without, timed in turns (unpruned, pruned,
+     pruned, unpruned): the two pruned runs write the same rows and
+     record, the best is the unpruned one's, two of its flush intervals
+     (the last, and the one whose first columns kept lie nearest the
+     middle) equal the twin's from its own flushed rows, and the pruned
+     launch is held against the bound of the cells it computed;
   8. the column split (run after phase 4, beside the CLI run): first the
      strip kernel on a streamed left border at a slab's shape, the border
      written by the slab before it (kernel = plain, exact); then the 1M
@@ -54,6 +64,16 @@ Phases (any failure raises and the run exits non-zero):
      speculative` and through `parallel.split.align_oversize` with
      16384-column slabs (32466), each with its seconds per stage and its
      launches per kernel;
+  2h. (after phase 3, on the 1M pair's characters) the strip kernel's
+     pruning instances against their plain twin, byte for byte, outputs
+     and record: the pair's first 16384 x 16384 on 4 blocks, and a launch
+     below and right of a partition's corner with a best handed in, on 3
+     blocks; the pruned share of each is printed;
+  2i. the pruning instances at 8 and 4 rows a thread on launches of more
+     sub-strips than the grid (the full grid, 4 and 64 blocks), sampled
+     sub-strips against the twin byte for byte from the launch's own
+     flushed rows, among them every sub-strip where the rule skips a part
+     of the columns (``tools/strip_tune.pruned_waves``);
   9. the sharded mode (beside phase 8): stage 1 of the 1M pair as the
      diagonal pipeline at the strip height the sweep chose
      (``parallel/sharded.CUDA_ROWS``, ``tools/sharded_tune.py``) over 1 and
@@ -99,6 +119,7 @@ import io
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -693,6 +714,206 @@ def streamed_border(s0, s1, dev):
     return err, ms, plain_ms
 
 
+def prune_inputs(s0, s1, dev, i0, c0, h, nj):
+    """A pruning launch of the strip kernel at rows [i0, i0 + h) and
+    columns [c0, c0 + nj) of the partition s0[:i0 + h] x s1[:c0 + nj]: the
+    row above from an unpruned launch, the zero border (a -INF wall right of
+    a host window when c0 > 0), a best of 300 handed in when i0 > 0."""
+    import numpy as np
+    import torch
+
+    from masa_tpu_torch import InitType, ScoreParams
+    from masa_tpu_torch.ops import wavefront as wf
+
+    params = ScoreParams()
+    kw = dict(match=params.match, mismatch=params.mismatch,
+              gap_open=params.gap_open, gap_ext=params.gap_ext, sw=True,
+              track_best=True)
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)  # noqa
+    a, b = t(s0[:i0 + h]), t(s1[:c0 + nj])
+    bus_h, bus_f = wf.init_bus(InitType.WITH_ZEROES, c0 + nj,
+                               params.gap_open, params.gap_ext, dev)
+    neg = torch.full((h,), NEG, dtype=torch.int32, device=dev)
+    if i0:
+        up = wf.strip(a[:i0], b, bus_h, bus_f,
+                      torch.zeros(i0, dtype=torch.int32, device=dev),
+                      torch.full((i0,), NEG, dtype=torch.int32, device=dev),
+                      0, **kw)
+        bus_h, bus_f = up.bus_h, up.bus_f
+    col_h = neg if c0 else torch.zeros(h, dtype=torch.int32, device=dev)
+    args = (a[i0:], b[c0:], bus_h[c0:].contiguous(), bus_f[c0:].contiguous(),
+            col_h, neg, NEG if c0 else 0)
+    best = torch.tensor([300 if i0 else 0], device=dev)
+    return args, wf.LaunchPrune(i0 + h, c0 + nj, i0, c0, best), kw
+
+
+def prune_matrix(s0, s1, dev):
+    """Phase 2h: the strip kernel's pruning instances against their plain
+    twin (``wavefront.strip_plain_pruned``) at the launch's own geometry,
+    byte for byte: every output (the per-row bests and the flushed rows
+    with their -INF prefixes) and the record.  Shapes where the rule fires:
+    the 1M pair's first 16384 x 16384 on 4 blocks (flushed every 2048),
+    and a launch below and right of a partition's corner with a best
+    handed in, on 3 blocks.  Returns the largest |difference|."""
+    import torch
+
+    from masa_tpu_torch.ops import kernels
+    from masa_tpu_torch.ops import wavefront as wf
+
+    saved = kernels.strip_cuda.launches
+    worst, line = 0, []
+    for i0, c0, h, nj, flush, ctas in ((0, 0, 16384, 16384, 2048, 4),
+                                       (8192, 1024, 6001, 7000, 777, 3)):
+        args, lp, kw = prune_inputs(s0, s1, dev, i0, c0, h, nj)
+        got, ms = timed(kernels.strip_cuda, *args, **kw, flush_every=flush,
+                        max_ctas=ctas, prune=lp)
+        rec = got[8]
+        want, plain_ms = timed(wf.strip_plain_pruned, *args, lp,
+                               (rec.rows, rec.blocks), **kw,
+                               flush_every=flush)
+        what = f"pruning launch {h} x {nj} at ({i0}, {c0}) on {ctas} blocks"
+        for k, (x, y) in enumerate(zip(got[:8], want[:8])):
+            if (x is None) != (y is None):
+                raise AssertionError(f"{what}: output {k} on one side only")
+            if x is not None:
+                d = int((x.long() - y.long()).abs().max())
+                worst = max(worst, d)
+                if d:
+                    raise AssertionError(f"{what}: output {k} differs (max "
+                                         f"|diff| {d})")
+        if not torch.equal(rec.record, want[8].record):
+            raise AssertionError(f"{what}: the record differs")
+        skipped = rec.pruned_cells(h)
+        if skipped <= 0:
+            raise AssertionError(f"{what}: the rule pruned nothing")
+        line.append(f"{h} x {nj} at ({i0}, {c0}), {rec.rows}-row sub-strips "
+                    f"on {rec.blocks} blocks: {skipped} cells pruned "
+                    f"({100 * skipped / (h * nj):.1f}%), kernel {ms:.3f} ms, "
+                    f"twin {plain_ms:.1f} ms")
+    kernels.strip_cuda.launches = saved  # checks, no main path
+    log("pruning kernel vs its plain twin, outputs and record equal (max "
+        f"|diff| {worst}, tolerance 0): " + "; ".join(line))
+    return worst
+
+
+def prune_waves(dev):
+    """Phase 2i: the pruning instances at the main path's block geometries
+    (8 rows a thread, stage 1's on the 1M pair, and 4) on launches of more
+    sub-strips than the grid, so that ``B_g`` comes from the chain of
+    prefix bests: 8 rows a thread on the full grid and on 4 blocks with no
+    best handed in, 4 rows a thread on 64 blocks with a best of 2000
+    handed in, below the launch's optimum (and on the full grid, which at
+    4 rows a thread holds every sub-strip at once).  Sampled sub-strips (the first
+    two, those around the grid's size, and every one of the last 8192
+    rows, where the rule skips a part of the columns) are held against
+    the twin byte for byte, from the launch's own flushed rows
+    (``tools/strip_tune.pruned_waves``).  Returns the largest |difference|
+    (0: any difference raises)."""
+    from masa_tpu_torch.ops import kernels
+    from masa_tpu_torch.tools import strip_tune
+
+    saved = kernels.strip_cuda.launches
+    line = []
+    for alpha, ctas, best_in in strip_tune.PRUNED_WAVES:
+        t0 = time.time()
+        r = strip_tune.pruned_waves(dev, alpha, ctas, best_in)
+        line.append(f"{r['what']}, best {best_in} handed in: "
+                    f"{r['checked']} of {r['sub_strips']} sub-strips equal "
+                    f"({r['partial']} skipping a part of their columns, "
+                    f"{r['chained']} against a best from above), "
+                    f"{100 * r['pruned_cells'] / r['cells']:.3f}% pruned, "
+                    f"{time.time() - t0:.1f} s")
+    kernels.strip_cuda.launches = saved  # checks, no main path
+    log("pruning kernel vs its twin on launches taller than the grid "
+        "(tolerance 0): " + "; ".join(line))
+    return 0
+
+
+def prune_stage1(s0, s1, dev):
+    """Phase 7b: the CLI's stage-1 launch on the 1M pair (SW, best tracked,
+    a row flushed every 8192, zero borders) with pruning inside the launch
+    and without it, each warmed then timed twice by events around the
+    launch alone; the two pruning runs must write the same rows, record and
+    best, the best must be the unpruned one's, and two flush intervals of
+    the pruning launch must equal the twin's (``strip_tune.
+    check_pruned_span``, from the launch's own flushed rows and per-row
+    bests: the main path's own instance, 2048-row sub-strips on the full
+    grid).  Returns a dict of the
+    times, the cells computed and pruned, and the blocks."""
+    import numpy as np
+    import torch
+
+    from masa_tpu_torch import InitType, ScoreParams
+    from masa_tpu_torch.ops import kernels
+    from masa_tpu_torch.ops import wavefront as wf
+
+    params = ScoreParams()
+    m, n, flush = len(s0), len(s1), 8192
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)  # noqa
+    a, b = t(s0), t(s1)
+    bus_h, bus_f = wf.init_bus(InitType.WITH_ZEROES, n, params.gap_open,
+                               params.gap_ext, dev)
+    args = (a, b, bus_h, bus_f, torch.zeros(m, dtype=torch.int32, device=dev),
+            torch.full((m,), NEG, dtype=torch.int32, device=dev), 0)
+    kw = dict(match=params.match, mismatch=params.mismatch,
+              gap_open=params.gap_open, gap_ext=params.gap_ext, sw=True,
+              track_best=True, flush_every=flush)
+    lp = wf.LaunchPrune(m, n, 0, 0, torch.zeros(1, dtype=torch.int64,
+                                                device=dev))
+    saved = kernels.strip_cuda.launches
+    runs = {}
+    for name, extra in (("unpruned", {}), ("pruned", {"prune": lp}),
+                        ("pruned", {"prune": lp}), ("unpruned", {})):
+        out, _, ms = timed_launch(1, kernels.strip_cuda, *args, **kw, **extra)
+        runs.setdefault(name, []).append((ms, out))
+    kernels.strip_cuda.launches = saved  # a measurement, no main path
+    (ms_p1, one), (ms_p2, two) = runs["pruned"]
+    for k, (x, y) in enumerate(zip(one[:8], two[:8])):
+        if x is not None and not torch.equal(x, y):
+            raise AssertionError(f"pruned stage-1 launch: output {k} differs "
+                                 f"between two runs")
+    if not torch.equal(one[8].record, two[8].record):
+        raise AssertionError("pruned stage-1 launch: the records differ")
+    full = runs["unpruned"][0][1]
+    best_p = wf.merge_best(one[2], one[3])
+    if not torch.equal(best_p, wf.merge_best(full[2], full[3])):
+        raise AssertionError("pruned stage-1 launch: the best differs from "
+                             "the unpruned launch's")
+    # the twin on sampled flush intervals of this launch (4 sub-strips
+    # each), from its own flushed rows: the last, and the one whose first
+    # columns kept lie nearest the middle of the columns
+    from masa_tpu_torch.tools import strip_tune
+
+    rec = one[8]
+    first = rec.record[:, 0].tolist()
+    per = flush // rec.rows
+    n_sub = len(first)
+    mid = min(range(0, n_sub - per, per),
+              key=lambda g: abs(first[g] - n // 2))
+    kw.pop("flush_every")
+    t0 = time.time()
+    for g0 in (mid, n_sub - per):
+        strip_tune.check_pruned_span(args, one, lp, flush, g0, g0 + per, kw)
+    twin_s = time.time() - t0
+    pruned = rec.pruned_cells(m)
+    res = dict(pruned_ms=[ms_p1, ms_p2],
+               unpruned_ms=[ms for ms, _ in runs["unpruned"]],
+               cells=m * n - pruned, pruned_cells=pruned,
+               blocks=one[8].blocks, rows=one[8].rows,
+               bytes=nbytes(*args[:6], *one[:8]))
+    log(f"pruned stage-1 launch, 1M pair ({m} x {n}, rows flushed every "
+        f"{flush}): {pruned} cells pruned ({100 * pruned / (m * n):.2f}%) by "
+        f"{one[8].rows}-row sub-strips on {one[8].blocks} blocks; kernel "
+        f"{ms_p1:.1f} and {ms_p2:.1f} ms pruned, "
+        f"{res['unpruned_ms'][0]:.1f} and {res['unpruned_ms'][1]:.1f} ms "
+        f"unpruned; best {best_p.tolist()} both ways; the two pruned runs' "
+        f"rows, record and outputs equal; sub-strips {mid}-{mid + per - 1} "
+        f"(first columns kept {first[mid:mid + per]}) and "
+        f"{n_sub - per}-{n_sub - 1} ({first[n_sub - per:]}) equal the twin's "
+        f"from the launch's own rows ({twin_s:.1f} s)")
+    return res
+
+
 def golden_pairs():
     """Phase 3: the frozen real-genomic scores through align()."""
     import masa_tpu_torch
@@ -832,11 +1053,38 @@ def stage_seconds(out):
         r"^stage(\d): .* in ([\d.]+)s", out, re.M)}
 
 
-def cli_run(fa, fb, tmp):
-    """Phase 5: the pair through the CLI in-process: --stage-1, then the
-    full run resuming it.  Returns the strip launches of the first call,
-    the batched launches of the second, and its stage-3 crosspoints (the
-    stage-2 bands: stage 3 passes them through on the card)."""
+def tree_digests(top):
+    """Every file under ``top``: its path below ``top`` -> (its size, the
+    SHA-256 of its bytes)."""
+    import hashlib
+
+    out = {}
+    for d, _, files in os.walk(top):
+        for f in files:
+            path = os.path.join(d, f)
+            sha = hashlib.sha256()
+            with open(path, "rb") as fh:
+                for block in iter(lambda: fh.read(1 << 24), b""):
+                    sha.update(block)
+            out[os.path.relpath(path, top)] = (os.path.getsize(path),
+                                               sha.hexdigest())
+    return out
+
+
+def pruned_cells_of(work):
+    with open(os.path.join(work, "statistics_01.00")) as fh:
+        return int(re.search(r"pruned_cells: (\d+)", fh.read()).group(1))
+
+
+def cli_run(fa, fb, tmp, cells):
+    """Phase 5: the pair through the CLI in-process: --stage-1 (block
+    pruning on, the CLI's default: it must prune), the same --stage-1 again
+    in another work directory (its special rows, crosspoint and statistics
+    byte for byte the first one's), then the full run resuming the first.
+    Returns the strip launches of the first call, the batched launches of
+    the last, its stage-3 crosspoints (the stage-2 bands: stage 3 passes
+    them through on the card), the seconds per stage and the pruned
+    cells."""
     from masa_tpu_torch.core.job import CrosspointsFile
 
     # every special row on disk (a crash-safe run), 1 GiB of them
@@ -844,9 +1092,30 @@ def cli_run(fa, fb, tmp):
     argv = [fa, fb, "--work-dir", work, "--ram-size", "0", "--disk-size",
             "1G"]
     first, secs0, launches0 = run_cli(argv + ["--stage-1"])
+    pruned = pruned_cells_of(work)
+    if pruned <= 0:
+        raise AssertionError("the CLI's stage 1 pruned nothing with block "
+                             "pruning on")
+    again = os.path.join(tmp, "again")
+    repeat, secs_r, launches_r = run_cli(
+        [fa, fb, "--work-dir", again, "--ram-size", "0", "--disk-size", "1G",
+         "--stage-1"])
+    for sub in ("special_rows", "crosspoints"):
+        one, two = (tree_digests(os.path.join(w, sub))
+                    for w in (work, again))
+        if one != two:
+            raise AssertionError(f"a repeated stage 1 wrote other {sub}: "
+                                 f"{sorted(set(one) ^ set(two))[:4]} or "
+                                 f"other bytes")
+        if sub == "special_rows":
+            rows = sum(size for size, _ in one.values())
+    if pruned_cells_of(again) != pruned:
+        raise AssertionError("a repeated stage 1 pruned other cells")
+    shutil.rmtree(again)
+    log(f"CLI 1M pair, stage 1 again in another work directory: "
+        f"{secs_r:.2f} s, its special rows ({rows} bytes) and crosspoint "
+        f"byte for byte the first run's, the same {pruned} pruned cells")
     second, secs1, launches1 = run_cli(argv)
-    with open(os.path.join(work, "statistics_01.00")) as fh:
-        pruned = re.search(r"pruned_cells: (\d+)", fh.read()).group(1)
     cps3 = CrosspointsFile(os.path.join(work, "crosspoints",
                                         "crosspoint_03.00")).load()
     if f"best score: {SCORE_1M} at" not in first:
@@ -859,17 +1128,17 @@ def cli_run(fa, fb, tmp):
     log(f"CLI 1M pair: --stage-1 call {secs0:.2f} s, resumed full call "
         f"{secs1:.2f} s; per stage " + json.dumps(stage_seconds(
             first + second))
-        + f"; pruned_cells {pruned}; strip launches {launches0['strip']}"
-        f" (first call), batched launches {launches1['batched_strip']}"
-        f" (second call)")
+        + f"; pruned_cells {pruned} ({100 * pruned / cells:.2f}% of m n); "
+        f"strip launches {launches0['strip']} (first call), batched "
+        f"launches {launches1['batched_strip']} (last call)")
     if launches0["strip"] <= 0:
         raise AssertionError("the CLI's stage 1 launched no strip kernel")
     if launches1["batched_strip"] <= 0:
         raise AssertionError("the CLI's traceback launched no batched "
                              "strip kernel")
-    return ({"strip": launches0["strip"],
+    return ({"strip": launches0["strip"] + launches_r["strip"],
              "batched_strip": launches1["batched_strip"]}, cps3,
-            stage_seconds(first + second))
+            stage_seconds(first + second), pruned)
 
 
 def need_launches(what, launches, names=("strip", "batched_strip")):
@@ -1294,15 +1563,16 @@ def main() -> int:
     s0, s1 = bench_pair()
     log(f"1M pair: {len(s0)} x {len(s1)}")
     err_sb, _, _ = streamed_border(s0, s1, dev)
-    err["strip"] = max(err["strip"], err_sb)
+    err["strip"] = max(err["strip"], err_sb, prune_matrix(s0, s1, dev),
+                       prune_waves(dev))
     full_run(s0, s1)
     g = os.path.join(REPO, "tests", "golden")
     with tempfile.TemporaryDirectory() as tmp:
         fa, fb = os.path.join(tmp, "a.fa"), os.path.join(tmp, "b.fa")
         write_fasta(fa, "bench s0", s0)
         write_fasta(fb, "bench s1", s1)
-        launches, cps3, mono_secs = cli_run(fa, fb,
-                                            os.path.join(tmp, "cli"))
+        launches, cps3, mono_secs, _ = cli_run(
+            fa, fb, os.path.join(tmp, "cli"), len(s0) * len(s1))
         err_lvl, levels = stage4_levels(s0, s1, cps3, dev, save_stage4)
         err["batched_strip"] = max(err["batched_strip"], err_lvl)
         more = [
@@ -1344,6 +1614,7 @@ def main() -> int:
     launches["roofline"], roof, stage1_ms, (err_fill, *filling) = \
         roofline_phase(dev)
     err["roofline"] = max(err["roofline"], err_fill)
+    pruned1 = prune_stage1(s0, s1, dev)
     # the bounds: cells over (the int32 peak at the clock read in this run
     # / the fewest INT32-lane instructions a cell needs: 5 where the best is
     # tracked, 4 where not), or bytes over the memory rate, whichever is
@@ -1412,12 +1683,18 @@ def main() -> int:
              M_1M * M_1M, "tracked")):
         bound_of(f"strip at the {what}", ms, cells, 0, rate[kind], old_rate,
                  code_rate[kind])
+    # the pruned stage-1 launch against the bound of the cells it computed
+    pruned1["bound_ms"], pruned1["bound_by"] = bound_of(
+        f"strip, the stage-1 launch pruned inside ({pruned1['cells']} cells "
+        f"computed)", min(pruned1["pruned_ms"]), pruned1["cells"],
+        pruned1["bytes"], rate["tracked"], old_rate, code_rate["tracked"])
     # the strip kernel a round of the sharded pipeline, against its bound
     for D, (ms, n, cells, moved) in sh_rounds.items():
         bound_of(f"strip, a sharded round over {D} slab(s) "
                  f"({cells} cells a launch, mean of {n})", ms / n, cells,
                  moved, rate["tracked"], old_rate, code_rate["tracked"])
     kernel_rows[1]["stage4_launches"] = levels
+    kernel_rows[0]["pruned_stage1"] = pruned1
     kernel_rows[0]["shapes"] = {
         "8192x1048576": times["strip"][0], "8192x16384": hop[0],
         "8192x16384, nothing tracked": hop[4], f"{M_1M}x{M_1M}": stage1_ms,

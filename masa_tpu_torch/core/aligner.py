@@ -150,6 +150,7 @@ class CUDAAligner(Aligner):
             pad_rows=mgr.pad_rows,
             blocks_sink=blocks,
             want_last_row=mgr.must_dispatch_last_row(),
+            best_in=mgr.best_in,
         )
         self.stats.cells += res.cells
         self.stats.pruned_cells += res.pruned_cells

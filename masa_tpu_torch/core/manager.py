@@ -84,6 +84,7 @@ class AlignerManager:
         self.recurrence = Recurrence.SMITH_WATERMAN
         self.special_row_interval = 0
         self.block_pruning = False
+        self.best_in = None  # a score reached above the partitions
         self.first_row_init = InitType.WITH_ZEROES
         self.first_col_init = InitType.WITH_ZEROES
         self._first_row = None
@@ -130,9 +131,12 @@ class AlignerManager:
     def set_special_row_interval(self, iv: int) -> None:
         self.special_row_interval = iv
 
-    def set_block_pruning(self, on: bool) -> None:
+    def set_block_pruning(self, on: bool, best_in: int | None = None) -> None:
+        """``best_in``: a score reached above the partitions (a resumed
+        stage 1's best), the least best that pruning starts from."""
         self.block_pruning = on and self.aligner.get_capabilities(
         ).block_pruning
+        self.best_in = best_in
 
     def set_special_rows_store(self, store) -> None:
         self.special_rows = store

@@ -139,7 +139,7 @@ _SIGNATURES = {
         "masa_strip_block_rows": [],
         "masa_strip_resident_blocks": [],
         "masa_strip_launch": (["p"] * 6 + ["i"] * 11 + ["p"] * 7
-                              + ["i"] * 3 + ["p"]),
+                              + ["i"] * 3 + ["p"] + ["i"] * 5 + ["p"] * 4),
     },
     "batched_strip": {
         "masa_batched_strip_max_warps": ["i"],
@@ -232,7 +232,8 @@ def strip_cuda(a, b, bus_h, bus_f, col_h, col_e, corner: int, *,
                match: int, mismatch: int, gap_open: int, gap_ext: int,
                sw: bool, track_best: bool = False,
                store_lastcol: bool = False, flush_every: int = 0,
-               max_ctas: int = 0, flags: list | None = None):
+               max_ctas: int = 0, flags: list | None = None,
+               prune=None):
     """Launch the strip kernel (see ``csrc/strip.cu`` for the contract).
 
     ``a`` (h,) and ``b`` (nj,) are uint8; the buses (nj,) and the left
@@ -241,10 +242,19 @@ def strip_cuda(a, b, bus_h, bus_f, col_h, col_e, corner: int, *,
     the unrequested ones are None.  ``max_ctas`` > 0 caps the persistent
     blocks (0: as many as the card holds).
 
+    ``prune`` (a ``wavefront.LaunchPrune``; SW with the best tracked and no
+    last column, else it raises) prunes inside the launch, and a
+    ``wavefront.PruneRecord`` of its decisions follows the outputs.
+
     The kernel's error flag is read on the host after the launch, which
     waits for the card.  With ``flags`` (a list) the flag, a (1,) device
     tensor, is appended to it instead, so that a caller can issue more
     launches first; it must then pass the values to ``check_flags``."""
+    from masa_tpu_torch.ops.wavefront import PruneRecord  # imports us
+
+    if prune is not None and (not (sw and track_best) or store_lastcol):
+        raise ValueError("pruning inside a launch needs SW, the best "
+                         "tracked and no last column")
     dev = b.device
     if dev.type != "cuda":
         raise ValueError(f"strip_cuda needs CUDA tensors, got {dev}")
@@ -258,10 +268,21 @@ def strip_cuda(a, b, bus_h, bus_f, col_h, col_e, corner: int, *,
         _check(name, x, torch.int32, n, dev)
     if flush_every < 0:
         raise ValueError(f"flush_every must be >= 0, got {flush_every}")
+    if prune is not None:
+        bi = prune.best_in
+        if bi.device != dev or bi.dtype != torch.int64 or bi.numel() < 1 \
+                or not bi.is_contiguous():
+            raise ValueError(f"best_in must be a contiguous int64 tensor on "
+                             f"{dev}")
+        if not (0 <= prune.i0 and prune.i0 + h <= prune.m
+                and 0 <= prune.col_off and prune.col_off + nj <= prune.n):
+            raise ValueError(f"the launch ({h} x {nj} at {prune.i0}, "
+                             f"{prune.col_off}) lies outside its partition "
+                             f"({prune.m} x {prune.n})")
     lib = load()
-    alpha, warps = strip_geometry(
-        h, torch.cuda.get_device_properties(dev).multi_processor_count)
-    n_sub = -(-h // (32 * alpha * warps))
+    alpha, warps = strip_geometry(h, _sms(dev))
+    rows = 32 * alpha * warps
+    n_sub = -(-h // rows)
     n_int = (h - 1) // flush_every if flush_every else 0
 
     def empty(*shape):
@@ -275,6 +296,11 @@ def strip_cuda(a, b, bus_h, bus_f, col_h, col_e, corner: int, *,
         else (None, None)
     # per sub-strip progress, then the ticket and the error flag
     sync = torch.zeros(n_sub + 2, dtype=torch.int32, device=dev)
+    record = prefix = None
+    if prune is not None:
+        record = empty(n_sub, 2)
+        prefix = torch.zeros(2 * n_sub, dtype=torch.int32, device=dev)
+    grid = ctypes.c_int(0)
 
     def ptr(x):
         return ctypes.c_void_p(x.data_ptr() if x is not None else 0)
@@ -287,7 +313,11 @@ def strip_cuda(a, b, bus_h, bus_f, col_h, col_e, corner: int, *,
             int(sw), int(track_best), int(store_lastcol), int(flush_every),
             ptr(best_v), ptr(best_j), ptr(last_h), ptr(last_e),
             ptr(rows_h), ptr(rows_f), ptr(sync), alpha, warps,
-            int(max_ctas), ctypes.c_void_p(stream))
+            int(max_ctas), ctypes.c_void_p(stream),
+            *((1, prune.m, prune.n, prune.i0, prune.col_off)
+              if prune is not None else (0, 0, 0, 0, 0)),
+            ptr(None if prune is None else prune.best_in), ptr(record),
+            ptr(prefix), ctypes.byref(grid))
     if rc != 0:
         raise RuntimeError(f"strip kernel launch failed: CUDA error {rc}")
     strip_cuda.launches += 1
@@ -295,7 +325,10 @@ def strip_cuda(a, b, bus_h, bus_f, col_h, col_e, corner: int, *,
         flags.append(sync[-1:])
     else:
         check_flags([int(sync[-1].item())])
-    return out_h, out_f, best_v, best_j, last_h, last_e, rows_h, rows_f
+    out = (out_h, out_f, best_v, best_j, last_h, last_e, rows_h, rows_f)
+    if prune is None:
+        return out
+    return out + (PruneRecord(record, rows, grid.value),)
 
 
 strip_cuda.launches = 0

@@ -16,8 +16,14 @@ on that window only, with -INF buses outside it; a window starting past
 column 0 has a -INF left wall and corner; an empty window skips the strip
 and leaves -INF buses.  The TPU's compile-key bucketing of window widths
 is left out: the kernel takes any width.  On the card one launch covers a
-whole stage-1 partition (``strip_height``), so the window is recomputed
-only between launches.
+whole stage-1 partition (``strip_height``), so the window between launches
+alone would be decided once, before any best is known: there the kernel
+also prunes inside the launch, each sub-strip with the same bound against
+the best of the rows above it (``wavefront.LaunchPrune``, the best handed
+over as a device tensor), and one read of its record a launch counts the
+cells it skipped.  The CPU's 512-row strips keep masa_tpu's window between
+strips alone, unless ``cfg.launch_prune`` asks the plain strips for the
+in-launch rule.
 """
 
 from __future__ import annotations
@@ -31,13 +37,15 @@ import torch
 from masa_tpu_torch.core import pruning
 from masa_tpu_torch.models.scoring import border_cells
 from masa_tpu_torch.types import INF, InitType, Recurrence, ScoreParams
+from masa_tpu_torch.ops import kernels
 from masa_tpu_torch.ops import wavefront as wf
 
 # Device bytes the interior rows of one launch may hold (H and F, int32).
 FLUSH_ROWS_BYTES = 1 << 30
 # Columns per pruning chunk (and per --dump-blocks block): the window's
-# granularity, a cost the host pays per strip (ng = nj / 512 maxima).
-PRUNE_CHUNK = 512
+# granularity, a cost the host pays per strip (ng = nj / 512 maxima), and
+# the grain of the kernel's decisions inside a launch.
+PRUNE_CHUNK = wf.PRUNE_CHUNK
 NEG = -INF
 
 
@@ -107,6 +115,7 @@ def run_partition(
     want_last_row: bool = True,
     first_col_reader=None,
     lastcol_writer=None,
+    best_in: int | None = None,
 ) -> PartitionResult:
     """Align one partition.  ``seq0``/``seq1`` are uint8 tensors or numpy
     arrays (which stay on the CPU); the strips run where ``seq1`` lies.
@@ -120,8 +129,10 @@ def run_partition(
     sees each strip's ``StripOut`` (its best is local to the strip and to
     its window starting at column ``col_off``) and may return True to
     stop.  ``prune`` enables block pruning (SW with best tracking, no last
-    column).  ``blocks_sink(rows_done, chunk_maxima)`` receives the bus's
-    per-chunk maxima after every strip.  ``pad_rows`` (score-only callers)
+    column): between strips, and inside each launch on a CUDA device (on
+    the CPU with ``cfg.launch_prune``).  ``blocks_sink(rows_done,
+    chunk_maxima)`` receives the bus's per-chunk maxima after every
+    strip.  ``pad_rows`` (score-only callers)
     drops the last-row output, as in masa_tpu; the tail strip still runs
     at its true height.
 
@@ -130,7 +141,9 @@ def run_partition(
     its corner is the last H read before it (``row_h[0]`` for the first).
     Those border cells belong to the slab on the left, so they do not seed
     the best.  ``lastcol_writer`` receives each strip's last column as
-    int32 (H, E); it needs ``cfg.store_lastcol``."""
+    int32 (H, E); it needs ``cfg.store_lastcol``.  ``best_in``, a score
+    reached above the partition (a resumed stage 1's best), is the least
+    best the pruning inside a launch starts from."""
     seq1 = _as_chars(seq1)
     seq0 = _as_chars(seq0).to(seq1.device)
     dev = seq1.device
@@ -144,6 +157,7 @@ def run_partition(
     go, ge = params.gap_open, params.gap_ext
     sw = cfg.recurrence == Recurrence.SMITH_WATERMAN
     prune = prune and cfg.track_best and sw and not cfg.store_lastcol
+    in_launch = prune and (dev.type == "cuda" or cfg.launch_prune is not None)
     ng = -(-nj // PRUNE_CHUNK)
     kw = dict(match=params.match, mismatch=params.mismatch, gap_open=go,
               gap_ext=ge, sw=sw, track_best=cfg.track_best,
@@ -215,7 +229,7 @@ def run_partition(
 
         wl, wr = 0, nj  # the strip's column window
         if prune:
-            if stop_check is None:
+            if stop_check is None and not in_launch:
                 best = int(dev_best[0])
             cl, cr = pruning.pruning_window(
                 chunk_maxima(bus_h, ng), best, i0, m, nj, PRUNE_CHUNK,
@@ -231,8 +245,20 @@ def run_partition(
             if wl > 0:
                 # -INF wall at the window's left edge (clearPrunedBlocks)
                 c_h, c_e, corner = neg(hs), neg(hs), NEG
-            out = wf.strip(seq0[i0:i0 + hs], seq1[wl:wr], bus_h[wl:wr],
-                           bus_f[wl:wr], c_h, c_e, corner, **kw)
+            args = (seq0[i0:i0 + hs], seq1[wl:wr], bus_h[wl:wr],
+                    bus_f[wl:wr], c_h, c_e, corner)
+            if in_launch:  # the best above the launch stays on the device
+                b_in = (dev_best[:1] if stop_check is None
+                        else torch.tensor([best], device=dev))
+                if best_in is not None:
+                    b_in = b_in.clamp(min=best_in)
+                lp = wf.LaunchPrune(m, nj, i0, wl, b_in)
+                out = wf.strip_out(*(
+                    kernels.strip_cuda(*args, **kw, prune=lp)
+                    if dev.type == "cuda" else
+                    wf.strip_plain_pruned(*args, lp, cfg.launch_prune, **kw)))
+            else:
+                out = wf.strip(*args, **kw)
             cells += hs * (wr - wl)
             pruned_cells += hs * (nj - (wr - wl))
             rows_h, rows_f = out.rows_h, out.rows_f
@@ -259,6 +285,16 @@ def run_partition(
             s, bi, bj = (int(v) for v in out.best.tolist())
             if s > best:
                 best, best_i, best_j = s, i0 + bi + 1, wl + bj + 1
+        if out is not None and out.prune is not None:
+            # one read a launch: the first columns each sub-strip kept, and
+            # the best so far for the next launch's window
+            got = torch.cat([out.prune.record[:, 0].long(),
+                             dev_best[:1]]).cpu().numpy()
+            if stop_check is None:
+                best = int(got[-1])
+            skipped = out.prune.pruned_cells(hs, got[:-1])
+            cells -= skipped
+            pruned_cells += skipped
         if cfg.store_lastcol:
             lch = out.lastcol_h.cpu().numpy()
             lce = out.lastcol_e.cpu().numpy()

@@ -17,6 +17,17 @@ H/F of the interior rows ``i`` with ``(i+1) % flush_every == 0``.  The TPU
 layout (lanes, the physical bus offset, padded widths) is not part of it:
 heights, widths and the flush cadence are runtime values.
 
+Block pruning inside a launch (``prune``, a ``LaunchPrune``; SW with the
+best tracked and no last column): the strip is cut into sub-strips of
+``rows`` rows, as the kernel cuts it, and sub-strip g skips the prefix of
+its ``PRUNE_CHUNK``-column chunks that the host's bound
+(``core/pruning.pruning_window``) says cannot beat
+``B_g = max(best_in, the best of sub-strips 0 .. g - blocks)``, where
+``blocks`` is the launch's grid: skipped columns are -INF in the bus and
+the flushed rows and take no part in the best, and the first kept column
+has a -INF left wall and corner.  The outputs then carry a ``PruneRecord``:
+per sub-strip the first column kept and ``B_g``.
+
 ``strip`` runs the plain version for CPU tensors and the kernel for CUDA
 tensors.  ``strip_plain`` is a row sweep (one cumulative max per row, the
 algorithm of ``masa_tpu/ops/rowsweep.sweep``), so it shares nothing with
@@ -29,6 +40,7 @@ its own.
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -37,6 +49,9 @@ from masa_tpu_torch.types import INF, InitType, Recurrence
 from masa_tpu_torch.ops import kernels
 
 NEG = -INF
+# Columns per pruning chunk: the grain of the host's window between strips
+# and of the decisions inside a launch (csrc/strip.cu PCHUNK).
+PRUNE_CHUNK = 512
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,8 +59,12 @@ class StripConfig:
     """What a partition's strips are run with.
 
     ``rows`` is the strip height: the rows one kernel launch covers (the
-    kernel spreads them over the card).  The rest mirrors the scoring
-    fields of ``masa_tpu.ops.wavefront.WavefrontConfig``."""
+    kernel spreads them over the card).  ``launch_prune`` = (rows a
+    sub-strip, blocks) asks the plain strips (CPU tensors) for the
+    in-launch pruning rule at that geometry; on a CUDA device the kernel
+    prunes inside every pruning launch at its own geometry.  The rest
+    mirrors the scoring fields of
+    ``masa_tpu.ops.wavefront.WavefrontConfig``."""
 
     rows: int = 512
     recurrence: Recurrence = Recurrence.SMITH_WATERMAN
@@ -55,6 +74,41 @@ class StripConfig:
     gap_ext: int = 2
     track_best: bool = True
     store_lastcol: bool = False
+    launch_prune: tuple[int, int] | None = None
+
+
+class LaunchPrune(NamedTuple):
+    """What the in-launch pruning rule needs besides the strip: the
+    partition's rows ``m`` and columns ``n``, its rows ``i0`` above the
+    launch, the partition column ``col_off`` of the launch's column 0, and
+    ``best_in``, a tensor on the strip's device whose first element is the
+    best score above the launch (no host read on the card)."""
+
+    m: int
+    n: int
+    i0: int
+    col_off: int
+    best_in: torch.Tensor
+
+
+class PruneRecord(NamedTuple):
+    """What a pruning launch decided: ``record`` (n_sub, 2) int32, per
+    sub-strip the first column kept (``nj`` when all were skipped) and
+    ``B_g``; the geometry it was decided at, ``rows`` a sub-strip and
+    ``blocks`` (the grid)."""
+
+    record: torch.Tensor
+    rows: int
+    blocks: int
+
+    def pruned_cells(self, h: int, first=None) -> int:
+        """Cells a launch of ``h`` rows skipped, from the record's first
+        columns kept (``first``: already read to the host)."""
+        if first is None:
+            first = self.record[:, 0].cpu().numpy()
+        heights = np.full(len(first), self.rows, np.int64)
+        heights[-1] = h - self.rows * (len(first) - 1)
+        return int((np.asarray(first, np.int64) * heights).sum())
 
 
 @dataclasses.dataclass
@@ -66,6 +120,7 @@ class StripOut:
     lastcol_e: torch.Tensor | None = None
     rows_h: torch.Tensor | None = None   # (n_int, nj) int32
     rows_f: torch.Tensor | None = None
+    prune: PruneRecord | None = None     # a pruning launch's decisions
 
 
 def merge_best(best_v: torch.Tensor, best_j: torch.Tensor) -> torch.Tensor:
@@ -82,10 +137,38 @@ def merge_best(best_v: torch.Tensor, best_j: torch.Tensor) -> torch.Tensor:
 
 
 def strip_out(bus_h, bus_f, best_v, best_j, last_h, last_e, rows_h,
-              rows_f) -> StripOut:
+              rows_f, prune=None) -> StripOut:
     """A StripOut from raw outputs (per-row best captures merged)."""
     best = merge_best(best_v, best_j) if best_v is not None else None
-    return StripOut(bus_h, bus_f, best, last_h, last_e, rows_h, rows_f)
+    return StripOut(bus_h, bus_f, best, last_h, last_e, rows_h, rows_f,
+                    prune)
+
+
+def _rows(a, b, hp, fp, ch, ce, up_left, *, match: int, mismatch: int,
+          gap_open: int, gap_ext: int, sw: bool):
+    """The row sweep of ``strip_plain``: each row's (H, E, F), int64, from
+    the row above ``hp``/``fp`` (int64), the left border's H and E as lists
+    ``ch``/``ce`` (one value a row) and the corner ``up_left``."""
+    nj = b.numel()
+    dev = b.device
+    go, ge = gap_open, gap_ext
+    jge = torch.arange(1, nj, device=dev, dtype=torch.int64) * ge
+    ramp = torch.arange(1, nj + 1, device=dev, dtype=torch.int64) * ge
+    for i in range(len(ch)):
+        f = torch.maximum(hp - go, fp) - ge
+        diag = torch.empty_like(hp)
+        diag[0] = up_left
+        diag[1:] = hp[:-1]
+        d = torch.maximum(diag + torch.where(b == a[i], match, mismatch), f)
+        if sw:
+            d.clamp_(min=0)
+        y = torch.empty_like(d)
+        y[0] = max(ch[i] - go, ce[i])
+        y[1:] = d[:-1] - go + jge
+        e = torch.cummax(y, 0).values - ramp
+        hc = torch.maximum(d, e)
+        yield hc, e, f
+        hp, fp, up_left = hc, f, ch[i]
 
 
 def strip_plain(a, b, bus_h, bus_f, col_h, col_e, corner: int, *,
@@ -103,33 +186,19 @@ def strip_plain(a, b, bus_h, bus_f, col_h, col_e, corner: int, *,
 
     One cumulative max is exact: a horizontal gap reopened from a cell
     whose H came from E is dominated by extending that gap."""
-    h, nj = a.numel(), b.numel()
+    kw = dict(match=match, mismatch=mismatch, gap_open=gap_open,
+              gap_ext=gap_ext, sw=sw)
+    h = a.numel()
     dev = b.device
     i64 = torch.int64
-    go, ge = gap_open, gap_ext
-    jge = torch.arange(1, nj, device=dev, dtype=i64) * ge
-    ramp = torch.arange(1, nj + 1, device=dev, dtype=i64) * ge
     hp, fp = bus_h.to(i64), bus_f.to(i64)
-    ch, ce = col_h.tolist(), col_e.tolist()
     best_v = torch.empty(h, dtype=i64, device=dev) if track_best else None
     best_j = torch.empty(h, dtype=i64, device=dev) if track_best else None
     last_h = torch.empty(h, dtype=i64, device=dev) if store_lastcol else None
     last_e = torch.empty(h, dtype=i64, device=dev) if store_lastcol else None
     rows_h, rows_f = [], []
-    up_left = int(corner)  # H(row above, border column)
-    for i in range(h):
-        f = torch.maximum(hp - go, fp) - ge
-        diag = torch.empty_like(hp)
-        diag[0] = up_left
-        diag[1:] = hp[:-1]
-        d = torch.maximum(diag + torch.where(b == a[i], match, mismatch), f)
-        if sw:
-            d.clamp_(min=0)
-        y = torch.empty_like(d)
-        y[0] = max(ch[i] - go, ce[i])
-        y[1:] = d[:-1] - go + jge
-        e = torch.cummax(y, 0).values - ramp
-        hc = torch.maximum(d, e)
+    for i, (hc, e, f) in enumerate(_rows(a, b, hp, fp, col_h.tolist(),
+                                         col_e.tolist(), int(corner), **kw)):
         if track_best:
             k = torch.argmax(hc)  # first occurrence of the row's max
             best_v[i] = hc[k]
@@ -140,7 +209,7 @@ def strip_plain(a, b, bus_h, bus_f, col_h, col_e, corner: int, *,
         if flush_every and (i + 1) % flush_every == 0 and i < h - 1:
             rows_h.append(hc)
             rows_f.append(f)
-        hp, fp, up_left = hc, f, ch[i]
+        hp, fp = hc, f
 
     def i32(x):
         return None if x is None else x.to(torch.int32)
@@ -149,6 +218,84 @@ def strip_plain(a, b, bus_h, bus_f, col_h, col_e, corner: int, *,
     rf = torch.stack(rows_f).to(torch.int32) if rows_f else None
     return strip_out(i32(hp), i32(fp), best_v, best_j, i32(last_h),
                      i32(last_e), rh, rf)
+
+
+def strip_plain_pruned(a, b, bus_h, bus_f, col_h, col_e, corner: int,
+                       prune: LaunchPrune, geometry: tuple[int, int], *,
+                       match: int, mismatch: int, gap_open: int,
+                       gap_ext: int, sw: bool = True, track_best: bool = True,
+                       store_lastcol: bool = False, flush_every: int = 0):
+    """``strip_plain`` with the in-launch pruning rule, sub-strip by
+    sub-strip, at ``geometry`` = (rows a sub-strip, blocks).  Returns the
+    raw outputs of ``kernels.strip_cuda(..., prune=...)``: ``(bus_h,
+    bus_f, best_v, best_j, None, None, rows_h, rows_f, PruneRecord)``, the
+    per-row bests int64.  ``csrc/strip.cu`` decides the same way, with the
+    same numbers (``prune_start`` there)."""
+    if not (sw and track_best) or store_lastcol:
+        raise ValueError("pruning inside a launch needs SW, the best "
+                         "tracked and no last column")
+    kw = dict(match=match, mismatch=mismatch, gap_open=gap_open,
+              gap_ext=gap_ext, sw=sw)
+    corner = int(corner)
+    rows, blocks = geometry
+    h, nj = a.numel(), b.numel()
+    dev = b.device
+    i64 = torch.int64
+    C = PRUNE_CHUNK
+    ng = -(-nj // C)
+    n_int = (h - 1) // flush_every if flush_every else 0
+    ch, ce = col_h.tolist(), col_e.tolist()
+    b_in = int(prune.best_in.reshape(-1)[0])
+    hp, fp = bus_h.to(i64), bus_f.to(i64)
+    best_v = torch.full((h,), NEG, dtype=i64, device=dev)
+    best_j = torch.zeros(h, dtype=i64, device=dev)
+    rows_h = torch.full((n_int, nj), NEG, dtype=i64, device=dev)
+    rows_f = torch.full((n_int, nj), NEG, dtype=i64, device=dev)
+    pad = torch.full((ng * C - nj,), NEG, dtype=i64, device=dev)
+    record, prefix = [], []  # prefix[g]: the best of sub-strips 0..g
+    for g, top in enumerate(range(0, h, rows)):
+        hs = min(rows, h - top)
+        bg = max(b_in, prefix[g - blocks]) if g >= blocks else b_in
+        up_left = corner if g == 0 else ch[top - 1]
+        vinit = max([up_left] + ch[top:top + hs])
+        maxima = torch.cat([hp, pad]).view(ng, C).amax(1).tolist()
+        rows_left = prune.m - prune.i0 - top
+        lo, v = nj, vinit
+        for k in range(ng):
+            v = max(maxima[k], vinit if k == 0 else v + C * match)
+            gain = min(rows_left, prune.n - prune.col_off - k * C) * match
+            if max(v, 0) + gain > bg:
+                lo = k * C
+                break
+        record.append((lo, bg))
+        out_h = torch.full((nj,), NEG, dtype=i64, device=dev)
+        out_f = torch.full((nj,), NEG, dtype=i64, device=dev)
+        if lo < nj:
+            # a -INF wall and corner left of the first column kept
+            wall = [NEG] * hs
+            left = ((ch[top:top + hs], ce[top:top + hs], up_left) if lo == 0
+                    else (wall, wall, NEG))
+            for r, (hc, _, f) in enumerate(_rows(a[top:top + hs], b[lo:],
+                                                 hp[lo:], fp[lo:], *left,
+                                                 **kw)):
+                i = top + r
+                k = torch.argmax(hc)
+                best_v[i] = hc[k]
+                best_j[i] = lo + k
+                if flush_every and (i + 1) % flush_every == 0 and i < h - 1:
+                    q = (i + 1) // flush_every - 1
+                    rows_h[q, lo:] = hc
+                    rows_f[q, lo:] = f
+            out_h[lo:], out_f[lo:] = hc, f
+        hp, fp = out_h, out_f
+        sub = int(best_v[top:top + hs].max())
+        prefix.append(max(prefix[-1], sub) if prefix else sub)
+    rec = PruneRecord(torch.tensor(record, dtype=torch.int32, device=dev),
+                      rows, blocks)
+    i32 = torch.int32
+    return (hp.to(i32), fp.to(i32), best_v, best_j, None, None,
+            rows_h.to(i32) if n_int else None,
+            rows_f.to(i32) if n_int else None, rec)
 
 
 def strip(a, b, bus_h, bus_f, col_h, col_e, corner: int, *, match: int,

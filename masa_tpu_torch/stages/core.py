@@ -160,13 +160,16 @@ def forward_pass(
     want_lastcol: bool = False,
     nw_best: bool = False,
     device="cuda",
+    best_in: int | None = None,
 ) -> FwdResult:
     """Forward DP over a partition; persists special rows (with synthesized
     border gap values) into `store`, through a manager + aligner pair.
     ``prune`` enables block pruning where the aligner supports it (the
     strip engine, SW); ``best_sink(i, j, score)`` receives every candidate
     score (multi-alignment runs); ``blocks_sink(rows_done, maxima)`` the
-    per-chunk bus maxima after each strip (--dump-blocks)."""
+    per-chunk bus maxima after each strip (--dump-blocks).  ``best_in`` is
+    a score reached above the partition (a resumed stage 1's best): the
+    pruning inside a launch starts from it."""
     m, n = len(seq0), len(seq1)
     store = store if store is not None else SpecialRowStore()
     backend = resolve_backend(backend, m * n, 4_000_000, device)
@@ -177,7 +180,7 @@ def forward_pass(
     mgr.set_first_column(col_init, first_col)
     mgr.set_special_rows_store(store)
     mgr.set_special_row_interval(special_every)
-    mgr.set_block_pruning(prune)
+    mgr.set_block_pruning(prune, best_in)
     # NW best tracking is opt-in (nw_best): --alignment-end '*' selects the
     # endpoint as the global NW maximum
     mgr.track_best = track_best and (

@@ -194,6 +194,8 @@ def stage1(job: Job, seq0: np.ndarray, seq1: np.ndarray,
             nw_best=(end == AlignmentStart.ANYWHERE
                      and rec == Recurrence.NEEDLEMAN_WUNSCH),
             device=job.device,
+            # a resumed run's best, reached in the rows above r0
+            best_in=job.status.best[2] if r0 else None,
         )
     finally:
         ticker.stop()

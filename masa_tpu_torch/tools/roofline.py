@@ -95,9 +95,9 @@ SASS_NAME = {"par": "par_kernel", "ser": "ser_kernel",
              "k1w": "cell_kernelILb1ELb1ELb1EE"}
 # the kernels' own inner loops: library, mangled-name part, what it is
 KERNEL_LOOPS = (
-    ("strip", "strip_kernelILi8ELb1ELb1ELb0EE",
+    ("strip", "strip_kernelILi8ELb1ELb1ELb0ELb0EE",
      "strip kernel, 8 rows a thread, SW, best tracked"),
-    ("strip", "strip_kernelILi8ELb0ELb0ELb0EE",
+    ("strip", "strip_kernelILi8ELb0ELb0ELb0ELb0EE",
      "strip kernel, 8 rows a thread, NW, nothing tracked"),
     ("batched_strip", "batched_strip_kernelILi8EE",
      "batched strip kernel, 8 rows a thread"),

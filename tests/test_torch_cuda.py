@@ -196,6 +196,150 @@ def test_streamed_border_kernel_matches_plain(cuda, tmp_path):
         assert p.specials.get(r)[0][0] == col_h[r - 1]
 
 
+PKW = dict(match=1, mismatch=-3, gap_open=3, gap_ext=2, sw=True,
+           track_best=True)
+
+
+def bench_homolog(seed, m, n):
+    """A bench.py-style pair: ``n`` characters of ``m`` random ones with
+    8% substituted."""
+    rng = np.random.default_rng(seed)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    s0 = rng.choice(bases, max(m, n)).astype(np.uint8)
+    s1 = np.where(rng.random(len(s0)) < 0.08, rng.choice(bases, len(s0)),
+                  s0)
+    return s0[:m].copy(), s1[:n].copy()
+
+
+def prune_inputs(seed, h, nj, dev, offset=False):
+    """A pruning launch on the card: the whole pair from its corner, or
+    (``offset``) rows below 512 others, right of a host window's -INF wall
+    at column 512, with a best of 300 handed in."""
+    i0, c0 = (512, 512) if offset else (0, 0)
+    s0, s1 = bench_homolog(seed, h + i0, nj + c0)
+    t = lambda x: torch.from_numpy(x).to(dev)  # noqa: E731
+    a, b = t(s0), t(s1)
+    bus_h, bus_f = wf.init_bus(InitType.WITH_ZEROES, len(s1), 3, 2, dev)
+    if i0:
+        up = wf.strip(a[:i0], b, bus_h, bus_f,
+                      torch.zeros(i0, dtype=torch.int32, device=dev),
+                      torch.full((i0,), NEG, dtype=torch.int32, device=dev),
+                      0, **PKW)
+        bus_h, bus_f = up.bus_h, up.bus_f
+    wall = torch.full((h,), NEG, dtype=torch.int32, device=dev)
+    col_h = wall if offset else torch.zeros(h, dtype=torch.int32, device=dev)
+    args = (a[i0:], b[c0:], bus_h[c0:].contiguous(), bus_f[c0:].contiguous(),
+            col_h, wall, NEG if offset else 0)
+    best = torch.tensor([300 if offset else 0], device=dev)
+    return args, wf.LaunchPrune(h + i0, nj + c0, i0, c0, best)
+
+
+@pytest.mark.parametrize("h,nj,flush,ctas,offset", [
+    (4096, 4096, 0, 1, False), (4096, 3000, 512, 2, False),
+    (16384, 8192, 2048, 4, False), (6001, 2500, 777, 3, True),
+    (2048, 1000, 0, 0, False)])
+def test_pruned_kernel_matches_twin(cuda, h, nj, flush, ctas, offset):
+    """The PRUNE instances against ``strip_plain_pruned`` at the launch's
+    own geometry: every raw output (the per-row bests too), the flushed
+    rows with their -INF prefixes, and the record, byte for byte.  A capped
+    grid makes the rule fire on a small strip; a full grid (ctas 0) has no
+    sub-strip G below another here, so only ``best_in`` could prune."""
+    args, lp = prune_inputs(h + nj, h, nj, cuda, offset)
+    before = kernels.strip_cuda.launches
+    got = kernels.strip_cuda(*args, **PKW, flush_every=flush, max_ctas=ctas,
+                             prune=lp)
+    assert kernels.strip_cuda.launches == before + 1
+    rec = got[8]
+    if ctas:
+        assert rec.blocks == ctas
+    want = wf.strip_plain_pruned(*args, lp, (rec.rows, rec.blocks), **PKW,
+                                 flush_every=flush)
+    for k, (x, y) in enumerate(zip(got[:8], want[:8])):
+        assert (x is None) == (y is None), k
+        if x is not None:
+            assert torch.equal(x.long(), y.long()), k
+    assert torch.equal(rec.record, want[8].record)
+    assert (rec.pruned_cells(h) > 0) == bool(ctas)
+
+
+def test_pruned_kernel_repeats_byte_for_byte(cuda):
+    """A pruning launch of 2^17 rows on the full grid and on 16 blocks,
+    each twice: the decisions depend on the inputs and the grid, not on
+    timing, so the outputs, flushed rows and record repeat exactly; the
+    best is the unpruned launch's."""
+    args, lp = prune_inputs(5, 1 << 17, 20000, cuda)
+    full = wf.strip(*args, **PKW)
+    for ctas in (0, 16):
+        one, two = (kernels.strip_cuda(*args, **PKW, flush_every=4096,
+                                       max_ctas=ctas, prune=lp)
+                    for _ in range(2))
+        for x, y in zip(one[:8], two[:8]):
+            assert (x is None and y is None) or torch.equal(x, y)
+        assert torch.equal(one[8].record, two[8].record)
+        assert torch.equal(wf.merge_best(one[2], one[3]), full.best)
+    assert one[8].pruned_cells(1 << 17) > 0
+
+
+@pytest.mark.parametrize("alpha,ctas,best_in", [(8, 0, 0), (8, 4, 0),
+                                                 (4, 0, 2000), (4, 64, 2000)])
+def test_pruned_kernel_at_the_main_paths_geometry(cuda, alpha, ctas,
+                                                  best_in):
+    """The pruning instances at 8 rows a thread (stage 1's on the 1M pair)
+    and 4, on launches of more sub-strips than the grid (the full grid, or
+    4 or 64 blocks), with a partial last sub-strip:
+    ``strip_tune.pruned_waves`` holds sampled sub-strips against the twin
+    byte for byte from the launch's own flushed rows, among them every one
+    of the last 8192 rows, where the rule skips a part of the columns
+    against a best from the chain of prefix bests (at 4 rows a thread the
+    full grid holds every sub-strip at once: there only ``best_in``
+    prunes)."""
+    from masa_tpu_torch.tools import strip_tune
+
+    r = strip_tune.pruned_waves(cuda, alpha, ctas, best_in)
+    assert r["partial"] > 0
+    assert r["chained"] > 0 or (alpha == 4 and not ctas)
+
+
+def test_pruned_partition_on_the_card(cuda, monkeypatch):
+    """``forward_pass`` with pruning on the card prunes inside its one
+    launch (here on 4 blocks) and keeps the CPU's unpruned best and
+    endpoint; cells and pruned cells add up."""
+    import functools
+
+    from masa_tpu_torch.stages import core
+    from masa_tpu_torch.types import Recurrence
+
+    s0, s1 = bench_homolog(3, 12000, 11000)
+    fw = functools.partial(core.forward_pass, s0, s1, ScoreParams(),
+                           Recurrence.SMITH_WATERMAN, InitType.WITH_ZEROES,
+                           InitType.WITH_ZEROES, backend="kernel")
+    want = fw(prune=False, device="cpu", cfg=wf.StripConfig(rows=4096))
+    capped = functools.partial(kernels.strip_cuda, max_ctas=4)
+    capped.launches = 0  # the wrapper counts on the name it is bound to
+    monkeypatch.setattr(kernels, "strip_cuda", capped)
+    got = fw(prune=True, device="cuda")
+    assert capped.launches == 1
+    assert (got.best, got.best_i, got.best_j) == (want.best, want.best_i,
+                                                  want.best_j)
+    assert got.pruned_cells > 0
+    assert got.cells + got.pruned_cells == len(s0) * len(s1)
+
+
+def test_pruned_wrapper_refuses(cuda):
+    """A pruning launch that the rule does not allow raises; so does a
+    best handed in as anything but an int64 tensor on the card."""
+    args, lp = prune_inputs(1, 300, 300, cuda)
+    for bad in (dict(sw=False), dict(track_best=False),
+                dict(store_lastcol=True)):
+        with pytest.raises(ValueError, match="pruning"):
+            kernels.strip_cuda(*args, **{**PKW, **bad}, prune=lp)
+    with pytest.raises(ValueError, match="best_in"):
+        kernels.strip_cuda(*args, **PKW, prune=lp._replace(
+            best_in=lp.best_in.int()))
+    with pytest.raises(ValueError, match="outside"):
+        kernels.strip_cuda(*args, **PKW, prune=lp._replace(m=10))
+
+
 def batched_inputs(seed, B, h_max, w_max, dev, n=20000):
     rng = np.random.default_rng(seed)
     bases = np.frombuffer(b"ACGT", np.uint8)
@@ -474,7 +618,8 @@ def test_roofline_counts_its_instructions_in_the_sass(cuda):
     assert instr["k1"]["alu"] > instr["k1n"]["alu"] >= 4
     assert instr["k1w"]["lsu"] > instr["k1"]["lsu"]
     loops = rl.cell_loops(kernels.build("strip"))
-    assert len(loops) == 24  # ALPHA 8, 4, 2 x SW x TRACK x FLUSH
+    # ALPHA 8, 4, 2 x SW x TRACK x FLUSH, and x FLUSH pruned (SW, TRACK)
+    assert len(loops) == 30
     assert all(6 <= v["alu"] <= 20 and len(v["digest"]) == 12
                for v in loops.values())
 
