@@ -28,15 +28,30 @@ Phases (any failure raises and the run exits non-zero):
      (pipeline.align_pair, then the stage-6 re-score): score 796634, stage 5
      verified, the re-score equal, strip-kernel launches in stages 1, 2 and
      3 (stage 4 stops at isqrt(max_cells_stage5) and may find nothing to
-     split after stage 3);
-  5. the CLI on the same pair, written as FASTA files: `--stage-1` (block
-     pruning on, the CLI's default: its pruned cells and their share of
-     m n are printed, and none fails the run), the same `--stage-1` again
-     in another work directory (its special rows, crosspoint and pruned
-     cells must be the first run's, byte for byte), then the full run
-     resuming the first (stage 1 reported as already executed, score
-     796634, stage 5 verified), strip launches in the first two calls and
-     batched launches in the last; per-stage times;
+     split after stage 3); the rows stage 1 kept on the card (count, bytes,
+     budget, the peak device memory) and stage 2's hops matched on the card
+     (more than 0, or the run fails) and on the host;
+  4b. stage 1 of align_pair's passes on the same pair with the rows handed
+     to the store eagerly and lazily, timed in turns, then stage 2 three
+     ways over the lazy run's rows: on the host (a whole row a hop), from
+     cut windows (no cache) and from the row cache; the three crosspoint
+     lists must be equal, the cache's march must match on the card and the
+     windows' must read windows;
+  5. the CLI on the same pair, written as FASTA files, every special row
+     on disk: one full call (stage 2 from the rows stage 1 kept on the
+     card: its hops matched there must be more than 0; the cache's rows,
+     bytes and budget and the peak device memory are printed), then
+     `--stage-1` (lazy rows; block pruning on, the CLI's default: its
+     pruned cells and their share of m n are printed, and none fails the
+     run), the same `--stage-1` again in another work directory with the
+     rows handed over eagerly (its special rows, crosspoint and pruned
+     cells must be the lazy run's, byte for byte), then the full run
+     resuming the first (stage 1 reported as already executed, stage 2
+     reading cut windows off the disk rows: more than 0) and the full run
+     resuming the second with the window reads off (the host match); the
+     three full runs score 796634, stage 5 verified, with the same
+     crosspoint and alignment files; strip launches in the stage-1 calls
+     and batched launches in the full ones; per-stage times;
      then the batched kernel at that run's own shapes: every launch of
      stage 4, forward and reverse, level by level, rebuilt from its
      stage-3 crosspoints, each timed against its plain version and its
@@ -90,7 +105,8 @@ Phases (any failure raises and the run exits non-zero):
 Each main-path run prints, per stage, the kernels' summed milliseconds
 (CUDA events around every launch) beside the stage's wall time.
 The kernels line counts each kernel's launches over every main-path run
-(phases 5, 7, 8 and 9; the fork and multihost workers report theirs) and
+(phases 5, 7, 8 and 9, less the host-matched call of phase 5, which is a
+comparison; the fork and multihost workers report theirs) and
 gives each kernel's bound: the larger of its bytes over the card's memory rate and
 its operations over the card's int32 peak (SMs x 64 INT32 lanes x the SM
 clock read in this run).  A Gotoh cell counts the fewest INT32-lane
@@ -938,14 +954,17 @@ def full_run(s0, s1):
     stage 4 stops at isqrt(max_cells_stage5), as masa_tpu's does on its
     device, so stage 4 may find nothing left to split here; the CLI run
     (phase 5) is where stage 4 splits whole stage-2 bands."""
+    import torch
+
     from masa_tpu_torch.ops import kernels
-    from masa_tpu_torch.stages import pipeline, stage6
+    from masa_tpu_torch.stages import core, pipeline, stage6
 
     counters = {"strip": kernels.strip_cuda,
                 "batched_strip": kernels.batched_strip_cuda}
     pcfg = pipeline.PipelineConfig(device="cuda")
     secs, launches, ncps = {}, {}, {}
     seen = {k: 0 for k in counters}
+    stats = core.MarchStats()
 
     def on_stage(name, seconds, out):
         secs[name] = seconds
@@ -957,11 +976,16 @@ def full_run(s0, s1):
         log(f"  {name}: {seconds:.2f} s, launches "
             + ", ".join(f"{k} {v}" for k, v in launches[name].items())
             + "; kernel ms " + kernel_ms_text(kernels.drain_events()))
+        if name == "stage1":
+            log("  " + cache_text(out[0].dev_cache))
+        elif name == "stage2":
+            log(f"  stage2: {stats.text()}")
 
     for c in counters.values():
         c.launches = 0
     kernels.drain_events()
-    aln = pipeline.align_pair(s0, s1, pcfg, on_stage=on_stage)
+    torch.cuda.reset_peak_memory_stats()
+    aln = pipeline.align_pair(s0, s1, pcfg, on_stage=on_stage, stats=stats)
     t0 = time.time()
     rc = stage6.recheck(aln, s0, s1, pcfg.params)
     secs["stage6"] = time.time() - t0
@@ -978,6 +1002,87 @@ def full_run(s0, s1):
     for s in ("stage1", "stage2", "stage3"):
         if launches[s]["strip"] <= 0:
             raise AssertionError(f"{s} launched no strip kernel")
+    if stats.dev_matches <= 0:
+        raise AssertionError("align_pair's stage 2 matched no hop on the "
+                             "card")
+
+
+def cache_text(cache):
+    """The row cache after stage 1, and the card's peak memory so far."""
+    import torch
+
+    return (f"stage 1 kept {len(cache)} rows on the card, "
+            f"{cache.nbytes} bytes (budget {cache.budget}); peak device "
+            f"memory "
+            f"{torch.cuda.max_memory_allocated()} bytes")
+
+
+@contextlib.contextmanager
+def patched(obj, name, value):
+    """``obj.name`` is ``value`` inside the block: how this script takes a
+    path that the port keeps no option for (the eager rows, the host
+    match), to hold it against the one the port takes."""
+    old = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, old)
+
+
+def march_paths(s0, s1):
+    """Phase 4b: stage 1 of align_pair on the 1M pair with its rows handed
+    to the store eagerly (each pulled to the host as it comes) and lazily
+    (kept on the card), timed in turns; then stage 2 three ways over the
+    lazy run's rows: on the host (each hop's whole row), from cut windows
+    (no cache) and from the row cache.  The three crosspoint lists must be
+    equal, the cache's march must match on the card and the windows' must
+    read windows."""
+    import torch
+
+    from masa_tpu_torch.stages import core, pipeline
+
+    pcfg = pipeline.PipelineConfig(device="cuda")
+    secs = {}
+
+    def stage1(name):
+        t0 = time.time()
+        out = pipeline.stage1_pass(s0, s1, pcfg)
+        torch.cuda.synchronize()
+        secs[name] = time.time() - t0
+        return out
+
+    with patched(core, "lazy_rows_fit", lambda *a: False):
+        eager, ep_eager = stage1("stage1 eager")
+    eager = None
+    res, endpoint = stage1("stage1 lazy")
+    if endpoint != ep_eager:
+        raise AssertionError(f"eager and lazy stage 1 ended apart: "
+                             f"{ep_eager} against {endpoint}")
+    chains, stats = {}, {}
+    for name, cache, windows in (("host", None, False),
+                                 ("windows", None, True),
+                                 ("cache", res.dev_cache, True)):
+        stats[name] = core.MarchStats()
+        t0 = time.time()
+        with patched(core, "_windowed_cut_ok", core._windowed_cut_ok
+                     if windows else lambda *a, **k: False):
+            chains[name] = pipeline.stage2_march(
+                s0, s1, pcfg, endpoint, res.specials.copy(), cache,
+                stats[name])
+        torch.cuda.synchronize()
+        secs[f"stage2 {name}"] = time.time() - t0
+        log(f"  stage 2 {name}: {len(chains[name])} crosspoints in "
+            f"{secs[f'stage2 {name}']:.2f} s; {stats[name].text()}")
+    log("1M pair, stage 1 and stage 2 by path (align_pair's passes): "
+        + json.dumps({k: round(v, 3) for k, v in secs.items()}))
+    if not chains["host"] == chains["windows"] == chains["cache"]:
+        raise AssertionError("stage 2's paths found other crosspoints")
+    if stats["cache"].dev_matches <= 0 or stats["host"].dev_matches:
+        raise AssertionError(f"the cache's march matched no hop on the "
+                             f"card, or the host's did: {stats}")
+    if stats["windows"].window_reads <= 0:
+        raise AssertionError("the march without a cache read no window")
 
 
 def kernel_ms_text(ms):
@@ -1076,68 +1181,137 @@ def pruned_cells_of(work):
         return int(re.search(r"pruned_cells: (\d+)", fh.read()).group(1))
 
 
-def cli_run(fa, fb, tmp, cells):
-    """Phase 5: the pair through the CLI in-process: --stage-1 (block
-    pruning on, the CLI's default: it must prune), the same --stage-1 again
-    in another work directory (its special rows, crosspoint and statistics
-    byte for byte the first one's), then the full run resuming the first.
-    Returns the strip launches of the first call, the batched launches of
-    the last, its stage-3 crosspoints (the stage-2 bands: stage 3 passes
-    them through on the card), the seconds per stage and the pruned
-    cells."""
-    from masa_tpu_torch.core.job import CrosspointsFile
+def stats_of(work, stage):
+    """The integer lines of a statistics file of the CLI's work dir."""
+    with open(os.path.join(work, f"statistics_0{stage}.00")) as fh:
+        return {k.strip(): int(v) for k, v in re.findall(
+            r"^\s*(\w+): (-?\d+)$", fh.read(), re.M)}
 
-    # every special row on disk (a crash-safe run), 1 GiB of them
+
+def outputs_of(work):
+    """Digests of a work dir's crosspoint files and alignments."""
+    import hashlib
+
+    out = tree_digests(os.path.join(work, "crosspoints"))
+    for name in sorted(os.listdir(work)):
+        if name.startswith("alignment."):
+            with open(os.path.join(work, name), "rb") as fh:
+                out[name] = hashlib.sha256(fh.read()).hexdigest()
+    return out
+
+
+def cli_run(fa, fb, tmp, cells):
+    """Phase 5: the pair through the CLI in-process, every special row on
+    disk.  First one full call (stage 1's rows stay on the card, so stage
+    2 matches there); then --stage-1 (block pruning on, the CLI's default:
+    it must prune; lazy rows), the same --stage-1 again in another work
+    directory with its rows handed over eagerly (its special rows,
+    crosspoint and statistics byte for byte the first one's), then the
+    full run resuming the first (no cache: stage 2 reads cut windows off
+    the disk rows) and the full run resuming the second with the window
+    reads off (the host match, a whole row read a hop).  The three full
+    runs write the same crosspoints and alignment.  Returns the strip
+    launches of the first two calls and the batched launches of the
+    first and the resumed one, its stage-3 crosspoints (the stage-2 bands:
+    stage 3 passes them through on the card), the seconds per stage and
+    the pruned cells."""
+    import torch
+
+    from masa_tpu_torch.core.job import CrosspointsFile
+    from masa_tpu_torch.stages import core
+
+    flags = ["--ram-size", "0", "--disk-size", "1G"]  # 1 GiB, all on disk
+    single = os.path.join(tmp, "single")
+    torch.cuda.reset_peak_memory_stats()
+    one, secs_1, launches_1 = run_cli([fa, fb, "--work-dir", single] + flags)
+    peak = torch.cuda.max_memory_allocated()
+    st1, st2 = stats_of(single, 1), stats_of(single, 2)
+    log(f"CLI 1M pair, one full call: {secs_1:.2f} s; stage 1 kept "
+        f"{st1['dev_rows']} rows on the card ({st1['dev_row_bytes']} "
+        f"bytes, budget {st1['dev_row_budget']}, lazy {st1['lazy_rows']})"
+        f", peak device memory {peak} bytes; stage 2 "
+        + json.dumps({k: st2[k] for k in ("dev_matches", "host_matches",
+                                          "window_reads", "window_bytes")}))
+    if st2["dev_matches"] <= 0 or not st1["lazy_rows"]:
+        raise AssertionError("the single CLI call's stage 2 matched no hop "
+                             "on the card, or its rows were not lazy")
     work = os.path.join(tmp, "w")
-    argv = [fa, fb, "--work-dir", work, "--ram-size", "0", "--disk-size",
-            "1G"]
+    argv = [fa, fb, "--work-dir", work] + flags
     first, secs0, launches0 = run_cli(argv + ["--stage-1"])
     pruned = pruned_cells_of(work)
     if pruned <= 0:
         raise AssertionError("the CLI's stage 1 pruned nothing with block "
                              "pruning on")
     again = os.path.join(tmp, "again")
-    repeat, secs_r, launches_r = run_cli(
-        [fa, fb, "--work-dir", again, "--ram-size", "0", "--disk-size", "1G",
-         "--stage-1"])
+    with patched(core, "lazy_rows_fit", lambda *a: False):
+        repeat, secs_r, launches_r = run_cli(
+            [fa, fb, "--work-dir", again, "--stage-1"] + flags)
+    if stats_of(again, 1)["lazy_rows"] or not stats_of(work, 1)["lazy_rows"]:
+        raise AssertionError("the eager and lazy stage 1 were not so")
     for sub in ("special_rows", "crosspoints"):
-        one, two = (tree_digests(os.path.join(w, sub))
-                    for w in (work, again))
-        if one != two:
-            raise AssertionError(f"a repeated stage 1 wrote other {sub}: "
-                                 f"{sorted(set(one) ^ set(two))[:4]} or "
-                                 f"other bytes")
+        lazy, eager = (tree_digests(os.path.join(w, sub))
+                       for w in (work, again))
+        if lazy != eager:
+            raise AssertionError(f"the eager stage 1 wrote other {sub} "
+                                 f"than the lazy one: "
+                                 f"{sorted(set(lazy) ^ set(eager))[:4]} "
+                                 f"or other bytes")
         if sub == "special_rows":
-            rows = sum(size for size, _ in one.values())
+            rows = sum(size for size, _ in lazy.values())
     if pruned_cells_of(again) != pruned:
         raise AssertionError("a repeated stage 1 pruned other cells")
-    shutil.rmtree(again)
-    log(f"CLI 1M pair, stage 1 again in another work directory: "
-        f"{secs_r:.2f} s, its special rows ({rows} bytes) and crosspoint "
-        f"byte for byte the first run's, the same {pruned} pruned cells")
+    log(f"CLI 1M pair, --stage-1 lazy {secs0:.2f} s, again eager in "
+        f"another work directory {secs_r:.2f} s: its special rows "
+        f"({rows} bytes) and crosspoint byte for byte the lazy run's, the "
+        f"same {pruned} pruned cells")
     second, secs1, launches1 = run_cli(argv)
+    st2w = stats_of(work, 2)
+    with patched(core, "_windowed_cut_ok", lambda *a, **k: False):
+        host, secs_h, _ = run_cli([fa, fb, "--work-dir", again] + flags)
+    st2h = stats_of(again, 2)
+    log("CLI 1M pair, stage 2 of the resumed call from windows "
+        + json.dumps({k: st2w[k] for k in st2})
+        + ", and of the resumed call on the host "
+        + json.dumps({k: st2h[k] for k in st2}))
+    if st2w["window_reads"] <= 0 or st2w["dev_matches"] <= 0:
+        raise AssertionError("the resumed call's stage 2 read no window")
+    if st2h["dev_matches"] or st2h["window_reads"]:
+        raise AssertionError("the host path matched on the card")
+    shutil.rmtree(os.path.join(again, "special_rows"))
+    for w in (work, again):
+        if outputs_of(w) != outputs_of(single):
+            raise AssertionError(f"{w} holds other crosspoints or "
+                                 f"alignments than the single call")
     cps3 = CrosspointsFile(os.path.join(work, "crosspoints",
                                         "crosspoint_03.00")).load()
     if f"best score: {SCORE_1M} at" not in first:
         raise AssertionError(f"the CLI's stage 1 did not find {SCORE_1M}")
-    for want in ("stage1: already executed (resume)",
-                 f"stage5: score={SCORE_1M} verified",
-                 f"alignment score: {SCORE_1M}  (matches="):
-        if want not in second:
-            raise AssertionError(f"the CLI's second run lacks {want!r}")
+    for out, what in ((one, "single"), (second, "resumed"),
+                      (host, "host-matched")):
+        for want in (f"stage5: score={SCORE_1M} verified",
+                     f"alignment score: {SCORE_1M}  (matches="):
+            if want not in out:
+                raise AssertionError(f"the CLI's {what} run lacks {want!r}")
+    if "stage1: already executed (resume)" not in second:
+        raise AssertionError("the resumed call ran stage 1 again")
     log(f"CLI 1M pair: --stage-1 call {secs0:.2f} s, resumed full call "
-        f"{secs1:.2f} s; per stage " + json.dumps(stage_seconds(
-            first + second))
+        f"{secs1:.2f} s (host-matched {secs_h:.2f} s); per stage "
+        + json.dumps(stage_seconds(first + second))
+        + "; the single call per stage " + json.dumps(stage_seconds(one))
+        + "; the host-matched call " + json.dumps(stage_seconds(host))
         + f"; pruned_cells {pruned} ({100 * pruned / cells:.2f}% of m n); "
-        f"strip launches {launches0['strip']} (first call), batched "
-        f"launches {launches1['batched_strip']} (last call)")
+        f"strip launches {launches0['strip']} (--stage-1 call), batched "
+        f"launches {launches1['batched_strip']} (resumed call)")
+    need_launches("the single CLI call", launches_1)
     if launches0["strip"] <= 0:
         raise AssertionError("the CLI's stage 1 launched no strip kernel")
     if launches1["batched_strip"] <= 0:
         raise AssertionError("the CLI's traceback launched no batched "
                              "strip kernel")
-    return ({"strip": launches0["strip"] + launches_r["strip"],
-             "batched_strip": launches1["batched_strip"]}, cps3,
+    return ({"strip": launches_1["strip"] + launches0["strip"]
+             + launches_r["strip"] + launches1["strip"],
+             "batched_strip": launches_1["batched_strip"]
+             + launches1["batched_strip"]}, cps3,
             stage_seconds(first + second), pruned)
 
 
@@ -1566,6 +1740,7 @@ def main() -> int:
     err["strip"] = max(err["strip"], err_sb, prune_matrix(s0, s1, dev),
                        prune_waves(dev))
     full_run(s0, s1)
+    march_paths(s0, s1)
     g = os.path.join(REPO, "tests", "golden")
     with tempfile.TemporaryDirectory() as tmp:
         fa, fb = os.path.join(tmp, "a.fa"), os.path.join(tmp, "b.fa")

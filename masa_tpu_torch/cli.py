@@ -468,7 +468,8 @@ def _self_test(device: str) -> int:
     ok = endpoint.score == ref.best
     print(f"stage1 best: {endpoint.score} (oracle {ref.best})"
           f" {'OK' if ok else 'FAIL'}")
-    cps = pipeline.stage2_march(s0, s1, pcfg, endpoint, res.specials)
+    cps = pipeline.stage2_march(s0, s1, pcfg, endpoint, res.specials,
+                                res.dev_cache)
     cps = pipeline.stage3_densify(s0, s1, pcfg, cps)
     cps = mm.stage4_reduce(s0, s1, cps, params, 16,
                            stage5_max_cells=pcfg.max_cells_stage5,

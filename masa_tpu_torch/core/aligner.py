@@ -134,6 +134,19 @@ class CUDAAligner(Aligner):
             def blocks(rows_done, maxima):
                 mgr.dispatch_block_scores(p.i0 + rows_done, maxima)
 
+        # special rows kept where they were computed: copies to the row
+        # cache, and the store's rows copied to the host on its demand
+        on_row_dev = on_row_lazy = None
+        if iv and mgr.special_dev_sink is not None:
+            def on_row_dev(r, dev_h, dev_f):
+                mgr.dispatch_row_dev(p.i0 + r, dev_h, dev_f)
+        if iv and mgr.lazy_special_rows:
+            def on_row_lazy(r, pull):
+                mgr.dispatch_row_lazy(p.i0 + r, pull)
+        # a cut on the device is matched there: the reverse pass's last
+        # row stays on the device too, and three values come back
+        dev_match = mgr.goal_base_dev is not None
+
         # per-strip score dispatch only when the manager wants every
         # candidate: a partition is one launch on the card, so there is no
         # later strip for a mid-flight goal stop to skip
@@ -149,12 +162,17 @@ class CUDAAligner(Aligner):
             prune=mgr.must_prune_blocks(),
             pad_rows=mgr.pad_rows,
             blocks_sink=blocks,
-            want_last_row=mgr.must_dispatch_last_row(),
+            want_last_row=mgr.must_dispatch_last_row() and not dev_match,
             best_in=mgr.best_in,
+            on_special_row_dev=on_row_dev,
+            on_special_row_lazy=on_row_lazy,
+            want_dev_last=dev_match,
         )
         self.stats.cells += res.cells
         self.stats.pruned_cells += res.pruned_cells
         self.stats.partitions += 1
+        if res.dev_last is not None:
+            mgr.dispatch_last_row_device(p.i1, *res.dev_last)
         if res.last_h is not None:
             mgr.dispatch_last_row(p.i1, res.last_h, res.last_f)
         if cfg.store_lastcol:

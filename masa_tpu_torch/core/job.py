@@ -57,6 +57,9 @@ class Job:
                  seq1_fingerprint: str = "", device="cuda"):
         """``device``: "cuda" (raises when no GPU is present) or "cpu"."""
         self.device = str(resolve_device(device))
+        # stage 1's special rows on the device, for the same call's stage
+        # 2 (stages/runner)
+        self.runtime_dev_rows = None
         self.cfg = cfg
         self.dir = cfg.work_dir
         if cfg.clear and os.path.isdir(self.dir):

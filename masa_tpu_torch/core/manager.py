@@ -1,7 +1,8 @@
 """Taken from ``masa_tpu/core/manager.py`` (the JAX reference).  It
 differs where the reference reaches JAX: the border gap values come from
-the port's ``stages/core``, and the last row is matched on the host only
-(``dispatch_last_row_device`` raises).
+the port's ``stages/core``, the device goal match is the port's
+``ops/wavefront.goal_match_device`` over tensors on the pass's device, and
+a lazy row's ``packed`` form is the special-rows area's own row codec.
 
 AlignerManager: the core side of the aligner contract (IManager,
 libmasa/IManager.hpp:90-319; impl common/AlignerManager.cpp).
@@ -21,12 +22,15 @@ from __future__ import annotations
 import numpy as np
 
 from masa_tpu_torch.core.best_score import BestScoreList
+from masa_tpu_torch.io.rowcodec import encode_row
 from masa_tpu_torch.models.scoring import border_cells, match_column
+from masa_tpu_torch.ops import wavefront as wf
 from masa_tpu_torch.types import (
     INF,
     Crosspoint,
     CrosspointType,
     InitType,
+    MatchResult,
     MatchType,
     Partition,
     Recurrence,
@@ -36,10 +40,10 @@ from masa_tpu_torch.types import (
 
 
 class LazyFullRow:
-    """A special row whose body is still a device snapshot (a RowPull),
-    with the host border element already attached.  full_rows()
-    materializes the (n+1,) arrays; packed() yields the disk-persistable
-    packed form plus the border scalars (core/sra.write_row_packed)."""
+    """A special row whose body is still a device snapshot (an
+    ops/strips.RowPull), with the host border element already attached.
+    full_rows() materializes the (n+1,) int64 arrays; packed(codec) the
+    special-rows area's payload of the row in that codec."""
 
     def __init__(self, pull, border_h: int, border_f: int):
         self.pull = pull
@@ -57,22 +61,23 @@ class LazyFullRow:
     def ready(self) -> bool:
         return self.pull.ready()
 
-    def full_rows(self):
+    def rows32(self) -> tuple[np.ndarray, np.ndarray]:
+        """The (n+1,) H and F as int32, the width the strips compute in."""
         bh, bf = self.pull.rows()
-        n = len(bh)
-        h_full = np.empty(n + 1, np.int64)
-        f_full = np.empty(n + 1, np.int64)
-        h_full[0] = self.border_h
-        f_full[0] = self.border_f
-        h_full[1:] = bh
-        f_full[1:] = bf
-        return h_full, f_full
+        h = np.empty(self.count, np.int32)
+        f = np.empty(self.count, np.int32)
+        h[0], f[0] = self.border_h, self.border_f
+        h[1:], f[1:] = bh, bf
+        return h, f
 
-    def packed(self):
-        return self.pull.packed()
+    def full_rows(self) -> tuple[np.ndarray, np.ndarray]:
+        h, f = self.rows32()
+        return h.astype(np.int64), f.astype(np.int64)
 
-    def anchors(self, stride: int):
-        return self.pull.anchors(stride)
+    def packed(self, codec: str) -> bytes:
+        """The row's payload in ``codec`` (io/rowcodec), byte for byte
+        what an eager row writes."""
+        return encode_row(codec, *self.rows32())
 
 
 class AlignerManager:
@@ -214,9 +219,13 @@ class AlignerManager:
 
     def _col_border(self, row: int):
         """Border values at ABSOLUTE row index (dispatches carry absolute
-        rows; the border arrays are partition-local)."""
-        r = row - (self.super_partition.i0 if self.super_partition else 0)
-        h, f = self._col_borders(max(r, 1))
+        rows; the border arrays are partition-local).  They are computed
+        once for the partition's whole height (a row's values depend on
+        the rows above it alone), not again for each deeper row, which
+        cost O(m) a special row."""
+        sup = self.super_partition
+        r = row - (sup.i0 if sup else 0)
+        h, f = self._col_borders(max(r, sup.height if sup else 0, 1))
         return int(h[r]), int(f[r])
 
     # --- dispatch funnel (AlignerManager.cpp:334-450) ------------------
@@ -265,11 +274,35 @@ class AlignerManager:
             self.special_dev_sink.put_dev(row, dev_h, dev_f)
 
     def dispatch_last_row_device(self, row: int, bus_h, bus_f) -> None:
-        """Device-side goal matching is not ported: the port matches the
-        pulled last row on the host (dispatch_last_row)."""
-        raise NotImplementedError(
-            "masa_tpu_torch matches the reverse pass's last row on the "
-            "host; device goal matching is not ported")
+        """The device twin of dispatch_last_row + _match_goal: match the
+        reverse pass's last-row bus against the cut in goal_base_dev
+        (wf.goal_match_device) where both lie, and pull only the
+        three-value verdict."""
+        if self.goal_base_dev is None:
+            return
+        dev_h, dev_f, cj, W1 = self.goal_base_dev
+        rev0h, rev0f = self._col_border(row)
+        if self.reverse_f0 is not None:
+            rev0f = self.reverse_f0
+        status, k, score = wf.goal_match_device(
+            dev_h, dev_f, bus_h, bus_f, cj, self.goal_score, rev0h, rev0f,
+            W1=W1, go=self.params.gap_open).tolist()
+        if status == 4:
+            mres = MatchResult(False, -1, 0, MatchType.ALIGNED)
+        elif status in (0, 1):
+            mres = MatchResult(True, k, score,
+                               MatchType.ALIGNED if status == 0
+                               else MatchType.GAPPED)
+        else:
+            mres = MatchResult(False, k, 0,
+                               MatchType.ERROR_SUM_MATCH if status == 2
+                               else MatchType.ERROR_SUM_GAP)
+        self.last_match_result = mres
+        if mres.found:
+            t = (CrosspointType.MATCH if mres.type == MatchType.ALIGNED
+                 else CrosspointType.GAP_2)
+            self._goal_cell = Crosspoint(row, mres.k, int(mres.score), t)
+            self._stopped = True
 
     def dispatch_last_row(self, row: int, last_h, last_f) -> None:
         h_full = np.asarray(last_h, np.int64)

@@ -160,14 +160,15 @@ def _aligned_view(a: np.ndarray, dt) -> np.ndarray:
 
 
 def encode_row(codec: str, h: np.ndarray, f: np.ndarray) -> bytes:
-    """Encode a special row (H, F int64 vectors of equal length)."""
-    h = np.asarray(h, np.int64)
-    f = np.asarray(f, np.int64)
+    """Encode a special row (H, F integer vectors of equal length; "none"
+    stores int32 pairs and takes int32 rows as they are)."""
     if codec == "none":
         data = np.empty((len(h), 2), np.int32)
         data[:, 0] = h
         data[:, 1] = f
         return _blob(data.reshape(-1).view(np.int8))
+    h = np.asarray(h, np.int64)
+    f = np.asarray(f, np.int64)
     dh = np.diff(h, prepend=np.int64(0))  # dh[0] = h[0]
     df = np.diff(f, prepend=np.int64(0))
     if codec == "8bit":

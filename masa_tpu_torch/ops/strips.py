@@ -24,6 +24,14 @@ over as a device tensor), and one read of its record a launch counts the
 cells it skipped.  The CPU's 512-row strips keep masa_tpu's window between
 strips alone, unless ``cfg.launch_prune`` asks the plain strips for the
 in-launch rule.
+
+Special rows can stay where they were computed (``on_special_row_dev``,
+``on_special_row_lazy``): each row is copied on the device, the copy goes
+to the row cache that stage 2 matches against, and the store gets a
+``RowPull`` that copies it to pinned host memory on a side stream only
+when the store asks (``start``), so stage 1 neither waits on the copies
+nor widens the rows on the host.  A reverse pass matched on the device
+(``want_dev_last``) keeps its last row there too.
 """
 
 from __future__ import annotations
@@ -61,6 +69,58 @@ class PartitionResult:
     specials: dict[int, tuple[np.ndarray, np.ndarray]]
     cells: int = 0
     pruned_cells: int = 0
+    dev_last: tuple | None = None  # (bus_h, bus_f) tensors, want_dev_last
+
+
+class RowPull:
+    """A special row on its device, copied to the host only on demand
+    (the port of ``masa_tpu.ops.strips.RowPull``; masa_tpu's delta packing
+    on the device is left out: the copy is of the int32 row itself).
+
+    ``start()`` copies the row into pinned host memory on ``stream`` (a
+    side stream, so the copy runs beside later work) and records an event
+    behind it; ``ready()`` asks the event; ``rows()`` waits for it.  On
+    the CPU the copy is immediate."""
+
+    def __init__(self, dev_h: torch.Tensor, dev_f: torch.Tensor,
+                 stream=None):
+        self.dev_h, self.dev_f = dev_h, dev_f
+        self.nj = dev_h.numel()
+        self._stream = stream
+        self._host = None
+        self._done = None
+
+    def start(self) -> "RowPull":
+        """Begin the copy to the host (idempotent)."""
+        if self._host is not None:
+            return self
+        if not self.dev_h.is_cuda:
+            self._host = torch.stack([self.dev_h, self.dev_f])
+            return self
+        host = torch.empty((2, self.nj), dtype=torch.int32, pin_memory=True)
+        self._stream.wait_stream(torch.cuda.current_stream(self.dev_h.device))
+        with torch.cuda.stream(self._stream):
+            host[0].copy_(self.dev_h, non_blocking=True)
+            host[1].copy_(self.dev_f, non_blocking=True)
+            self._done = torch.cuda.Event()
+            self._done.record(self._stream)
+        # the rows were made on the compute stream: keep their memory
+        # from reuse there until the side stream has read them
+        self.dev_h.record_stream(self._stream)
+        self.dev_f.record_stream(self._stream)
+        self._host = host
+        return self
+
+    def ready(self) -> bool:
+        return self._host is not None and (self._done is None
+                                           or self._done.query())
+
+    def rows(self) -> tuple[np.ndarray, np.ndarray]:
+        """(h, f) int32 host arrays of length nj (no border element)."""
+        self.start()
+        if self._done is not None:
+            self._done.synchronize()
+        return self._host[0].numpy(), self._host[1].numpy()
 
 
 def _border_vec(init, params, length, start, custom):
@@ -116,6 +176,9 @@ def run_partition(
     first_col_reader=None,
     lastcol_writer=None,
     best_in: int | None = None,
+    on_special_row_dev: Callable | None = None,
+    on_special_row_lazy: Callable | None = None,
+    want_dev_last: bool = False,
 ) -> PartitionResult:
     """Align one partition.  ``seq0``/``seq1`` are uint8 tensors or numpy
     arrays (which stay on the CPU); the strips run where ``seq1`` lies.
@@ -143,7 +206,14 @@ def run_partition(
     the best.  ``lastcol_writer`` receives each strip's last column as
     int32 (H, E); it needs ``cfg.store_lastcol``.  ``best_in``, a score
     reached above the partition (a resumed stage 1's best), is the least
-    best the pruning inside a launch starts from."""
+    best the pruning inside a launch starts from.
+
+    ``on_special_row_dev(dp_row, dev_h, dev_f)`` receives a device copy
+    of every special row (int32 tensors of length n) before the row goes
+    on; with ``on_special_row_lazy(dp_row, pull)`` the row goes on as a
+    ``RowPull`` of those copies instead of host arrays.
+    ``want_dev_last`` returns the last row's bus as tensors in
+    ``dev_last``."""
     seq1 = _as_chars(seq1)
     seq0 = _as_chars(seq0).to(seq1.device)
     dev = seq1.device
@@ -190,8 +260,18 @@ def run_partition(
         col_e[0] = -INF
 
     specials: dict[int, tuple[np.ndarray, np.ndarray]] = {}
+    side = (torch.cuda.Stream(dev) if on_special_row_lazy is not None
+            and dev.type == "cuda" else None)
 
     def emit_special(r, h, f):
+        if on_special_row_dev is not None or on_special_row_lazy is not None:
+            # a row of its own, not a view that keeps the launch's rows
+            h, f = h.clone(), f.clone()
+        if on_special_row_dev is not None:
+            on_special_row_dev(r, h, f)
+        if on_special_row_lazy is not None:
+            on_special_row_lazy(r, RowPull(h, f, side))
+            return
         bh = h.cpu().numpy().astype(np.int64)
         bf = f.cpu().numpy().astype(np.int64)
         if on_special_row:
@@ -325,4 +405,6 @@ def run_partition(
     return PartitionResult(last_h=last_h, last_f=last_f, best=best,
                            best_i=best_i, best_j=best_j, col_h=col_h,
                            col_e=col_e, specials=specials, cells=cells,
-                           pruned_cells=pruned_cells)
+                           pruned_cells=pruned_cells,
+                           dev_last=(bus_h, bus_f) if want_dev_last
+                           else None)

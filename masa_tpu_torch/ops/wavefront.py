@@ -501,3 +501,50 @@ def decode_packed_row(u, mark, exact, nj: int):
         add[mark] = np.diff(np.concatenate([[0], corr]))
         out += np.cumsum(add)
     return out
+
+
+def goal_match_device(cut_h, cut_f, rev_h, rev_f, cj: int, goal: int,
+                      rev0h: int, rev0f: int, W1: int, go: int
+                      ) -> torch.Tensor:
+    """``models.scoring.match_column`` where the rows lie: a stored
+    stage-1 cut against the reverse pass's last-row bus, neither pulled to
+    the host (the port of ``masa_tpu.ops.wavefront.goal_match_device``,
+    there XLA outside any Pallas kernel, here plain tensor operations).
+
+    ``cut_h``/``cut_f``: the stored cut as a bus, index j-1 -> column j
+    (a whole row from the row cache, or a window whose element 0 is bus
+    index ``cj - W1``).  ``rev_h``/``rev_f``: the reverse pass's last-row
+    bus, index k-1 -> reverse column k; ``rev0h``/``rev0f`` its border
+    element.  Match index k in [0, W1) is column cj - k and needs
+    j_low = cj - (W1 - 1) >= 1 (the column-0 border is matched on the
+    host).  Sums are taken in int64, as ``match_column`` takes them.
+
+    Returns an int32 tensor (status, k, score) on the rows' device:
+    status 0 aligned, 1 gapped, 2 error-sum match, 3 error-sum gap, 4 no
+    stop; k the first stopping index (-1 for 4); score the stored value
+    at a hit (0 otherwise)."""
+    lo = cj - W1
+    if lo < 0 or cj > cut_h.numel() or W1 - 1 > rev_h.numel():
+        raise ValueError(f"match window [{lo}, {cj}) outside the cut of "
+                         f"{cut_h.numel()} or the reverse row of "
+                         f"{rev_h.numel()}")
+    dev = cut_h.device
+    fwd_h = cut_h[lo:cj].flip(0).long()
+    fwd_f = cut_f[lo:cj].flip(0).long()
+    head = torch.tensor([[rev0h], [rev0f]], dtype=torch.int64, device=dev)
+    rh = torch.cat([head[0], rev_h[:W1 - 1].long()])
+    rf = torch.cat([head[1], rev_f[:W1 - 1].long()])
+    sum_m = fwd_h + rh
+    sum_g = fwd_f + rf + go
+    stop = (sum_m >= goal) | (sum_g >= goal)
+    k = torch.arange(W1, device=dev)
+    idx = torch.where(stop, k, W1).min()
+    at = idx.clamp(max=W1 - 1)
+    m_at = sum_m[at] == goal
+    hit = (idx < W1) & (m_at | (sum_g[at] == goal))
+    status = torch.where(
+        idx >= W1, 4, torch.where(hit, torch.where(m_at, 0, 1),
+                                  torch.where(sum_m[at] > goal, 2, 3)))
+    score = torch.where(hit, torch.where(m_at, fwd_h[at], fwd_f[at]), 0)
+    return torch.stack([status, torch.where(idx >= W1, -1, at),
+                        score]).int()

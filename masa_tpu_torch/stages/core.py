@@ -7,13 +7,22 @@ there and are the same here.
 What differs is how passes are dispatched.  Every pass builds a manager
 and an aligner; ``backend="auto"`` picks the strip engine for every pass on
 a CUDA device (a launch costs microseconds there), and keeps masa_tpu's
-size gates to the NumPy oracle on the CPU.  The reverse march runs one
-reverse pass per hop and matches the pulled last row on the host.
+size gates to the NumPy oracle on the CPU.
+
+Stage 2 matches on the device where it can, as masa_tpu does: stage 1
+keeps a copy of each special row where it was computed (``DevRowCache``,
+its budget the card's own), and a hop whose cut is there matches the
+reverse pass's last row against it in place and pulls three values
+(``wavefront.goal_match_device``).  A hop whose row is not cached (a
+resumed run, an evicted row) reads only the cut's column window from the
+store and matches that on the device (``_fetch_window_cut``).  The hop
+chains of masa_tpu's device march are not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -32,14 +41,25 @@ from masa_tpu_torch.types import (
 )
 from masa_tpu_torch.core.aligner import CPUAligner, CUDAAligner
 from masa_tpu_torch.core.manager import AlignerManager
+from masa_tpu_torch.ops import strips
 from masa_tpu_torch.ops import wavefront as wf
 
 NEG = -INF
 
+# The row cache's budget on the CPU, where its rows are host memory.
+CPU_ROW_CACHE_BYTES = 1 << 30
+# Device memory a stage-1 launch needs beside the rows it keeps: its
+# flushed rows (at most strips.FLUSH_ROWS_BYTES) and 64 MiB for the rest.
+# Measured on an H100 (chip_smoke.py, the CLI on the 1M pair): the call's
+# peak less its 127 kept rows was 1,111,567,840 bytes, the launch's
+# 1,065,349,152 bytes of flushed rows and 46,218,688 more.
+LAUNCH_MARGIN = strips.FLUSH_ROWS_BYTES + (64 << 20)
+
 
 class SpecialRowStore:
     """RAM special-row store: row index -> ((n+1,) H, (n+1,) F) including
-    the border element at k=0."""
+    the border element at k=0, or a manager.LazyFullRow whose body stays
+    on its device until a read."""
 
     def __init__(self):
         self._rows: dict[int, tuple[np.ndarray, np.ndarray]] = {}
@@ -47,8 +67,24 @@ class SpecialRowStore:
     def put(self, r: int, h: np.ndarray, f: np.ndarray) -> None:
         self._rows[r] = (np.asarray(h), np.asarray(f))
 
+    def put_lazy(self, r: int, lazy) -> None:
+        """A lazy row: a RAM store is no crash persistence, so a row that
+        is never read never crosses to the host."""
+        self._rows[r] = lazy
+
     def get(self, r: int) -> tuple[np.ndarray, np.ndarray]:
-        return self._rows[r]
+        v = self._rows[r]
+        if not isinstance(v, tuple):
+            v = self._rows[r] = v.full_rows()
+        return v
+
+    def get_window(self, r: int, lo: int, hi: int
+                   ) -> tuple[np.ndarray, np.ndarray]:
+        h, f = self.get(r)
+        return h[lo:hi], f[lo:hi]
+
+    def finalize(self) -> None:
+        pass
 
     def rows(self) -> list[int]:
         return sorted(self._rows)
@@ -72,6 +108,99 @@ class SpecialRowStore:
 
     def __len__(self):
         return len(self._rows)
+
+
+class DevRowCache:
+    """Stage 1's special rows kept where they were computed, so that
+    stage 2 matches each hop there (the port of
+    ``masa_tpu.stages.core.DevRowCache``).  The store stays the
+    authority (crash resume); this is an accelerator.
+
+    ``budget_bytes`` bounds the rows' bytes (``row_cache_budget`` gives
+    the rule for a device).  Eviction drops the smallest rows first:
+    stage 2 consumes top-down, so the high rows are needed soonest.  Rows
+    above a found crosspoint are dropped as the store drops them."""
+
+    def __init__(self, budget_bytes: int):
+        self.budget = budget_bytes
+        self._rows: dict[int, tuple] = {}     # r -> (dev_h, dev_f)
+        self._borders: dict[int, tuple] = {}  # r -> (h0, f0)
+        self.nbytes = 0
+
+    @staticmethod
+    def _size(dev_h) -> int:
+        return 2 * dev_h.numel() * dev_h.element_size()
+
+    def _drop(self, r: int) -> None:
+        dev_h, _ = self._rows.pop(r)
+        self._borders.pop(r, None)
+        self.nbytes -= self._size(dev_h)
+
+    def put_dev(self, r: int, dev_h, dev_f) -> None:
+        if r in self._rows:
+            return
+        size = self._size(dev_h)
+        while self.nbytes + size > self.budget and self._rows:
+            self._drop(min(self._rows))
+        if self.nbytes + size > self.budget:
+            return
+        self._rows[r] = (dev_h, dev_f)
+        self.nbytes += size
+
+    def attach_border(self, r: int, h0: int, f0: int) -> None:
+        if r in self._rows:
+            self._borders[r] = (int(h0), int(f0))
+
+    def get(self, r: int):
+        """(dev_h, dev_f, border_h0, border_f0) or None."""
+        row = self._rows.get(r)
+        border = self._borders.get(r)
+        if row is None or border is None:
+            return None
+        return (*row, *border)
+
+    def truncate_above(self, i: int) -> None:
+        for r in [r for r in self._rows if r > i]:
+            self._drop(r)
+
+    def __len__(self):
+        return len(self._rows)
+
+
+def row_cache_budget(device) -> int:
+    """The row cache's budget on ``device``: on a card, half of the
+    device memory free when it is asked (the rest is for the launches of
+    every stage); on the CPU, CPU_ROW_CACHE_BYTES."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        return torch.cuda.mem_get_info(dev)[0] // 2
+    return CPU_ROW_CACHE_BYTES
+
+
+def lazy_rows_fit(pinned_bytes: int, budget: int, device) -> bool:
+    """Whether stage 1 may deliver its rows lazily: a lazy row pins its
+    device copy until the store reads it, and the rows a RAM store keeps
+    are never read, so their bytes (``pinned_bytes``) must fit the
+    cache's budget with a stage-1 launch's own working memory beside
+    them (LAUNCH_MARGIN on a card)."""
+    margin = LAUNCH_MARGIN if torch.device(device).type == "cuda" else 0
+    return pinned_bytes + margin <= budget
+
+
+@dataclasses.dataclass
+class MarchStats:
+    """What a reverse march did: its passes matched where the rows lie
+    and on the host, and the cut windows it read from the store with
+    their int32 H and F bytes."""
+    dev_matches: int = 0
+    host_matches: int = 0
+    window_reads: int = 0
+    window_bytes: int = 0
+
+    def text(self) -> str:
+        return (f"matched on the device {self.dev_matches}, on the host "
+                f"{self.host_matches}; window reads {self.window_reads} "
+                f"({self.window_bytes} bytes)")
 
 
 def border_gap_values(h_border: np.ndarray, params: ScoreParams) -> np.ndarray:
@@ -109,6 +238,7 @@ class FwdResult:
     col_h: np.ndarray | None = None  # (m+1,) last column H if requested
     col_e: np.ndarray | None = None
     pruned_cells: int = 0
+    dev_cache: DevRowCache | None = None
 
 
 def default_config(device) -> wf.StripConfig:
@@ -161,6 +291,8 @@ def forward_pass(
     nw_best: bool = False,
     device="cuda",
     best_in: int | None = None,
+    dev_cache: DevRowCache | None = None,
+    lazy_rows: bool = False,
 ) -> FwdResult:
     """Forward DP over a partition; persists special rows (with synthesized
     border gap values) into `store`, through a manager + aligner pair.
@@ -169,7 +301,10 @@ def forward_pass(
     score (multi-alignment runs); ``blocks_sink(rows_done, maxima)`` the
     per-chunk bus maxima after each strip (--dump-blocks).  ``best_in`` is
     a score reached above the partition (a resumed stage 1's best): the
-    pruning inside a launch starts from it."""
+    pruning inside a launch starts from it.  ``dev_cache`` keeps a copy
+    of each special row on the pass's device (the strip engine); with
+    ``lazy_rows`` the store gets them as LazyFullRows too, and is
+    finalized after the pass."""
     m, n = len(seq0), len(seq1)
     store = store if store is not None else SpecialRowStore()
     backend = resolve_backend(backend, m * n, 4_000_000, device)
@@ -191,8 +326,13 @@ def forward_pass(
     mgr.want_last_row = want_last_row and not pad_rows
     mgr.last_column_wanted = want_lastcol
     mgr.blocks_sink = blocks_sink
+    mgr.special_dev_sink = dev_cache
+    mgr.lazy_special_rows = (lazy_rows and dev_cache is not None
+                             and backend != "numpy")
     aligner.set_sequences(seq0, seq1)
     mgr.align_partition(Partition(0, 0, m, n))
+    if mgr.lazy_special_rows:
+        store.finalize()
 
     if mgr.last_row is not None:
         _, lh, lf = mgr.last_row
@@ -204,7 +344,8 @@ def forward_pass(
         _, col_h, col_e = mgr.last_column
     return FwdResult(lh, lf, best, best_i, best_j, store,
                      aligner.stats.cells, col_h=col_h, col_e=col_e,
-                     pruned_cells=aligner.stats.pruned_cells)
+                     pruned_cells=aligner.stats.pruned_cells,
+                     dev_cache=dev_cache)
 
 
 def goal_reachable(cp: Crosspoint, cut_row: int, match: int) -> bool:
@@ -262,6 +403,10 @@ def reverse_pass_and_match(
     want_rev_col: bool = False,
     free_col_start: bool = False,
     device="cuda",
+    dev_cut: tuple | None = None,
+    fwd_rows_fn=None,
+    dev_cut_off: int = 0,
+    stats: MarchStats | None = None,
 ) -> ReverseMatch:
     """One reverse partition: from crosspoint `cp` up to `cut_row`,
     columns [j_low, cp.j], matched against the stored forward cut
@@ -271,7 +416,15 @@ def reverse_pass_and_match(
 
     ``rev_seqs = (seq0_reversed, seq1_reversed)``: the full reversed
     arrays, built once per march; the pass aligns an offset partition of
-    them."""
+    them.
+
+    ``dev_cut = (dev_h, dev_f, border_h0, border_f0)``: the stored cut as
+    tensors on the pass's device, a whole row from the row cache or a
+    window read from the store, its element 0 at bus index
+    ``dev_cut_off``.  Where it serves (the strip engine, a window clear of
+    column 0) the match runs on the device and fwd_h/fwd_f may be None:
+    ``fwd_rows_fn()`` loads the host row only if the host match is needed
+    after all.  ``stats`` counts where the pass matched."""
     ci, cj, s, t = cp.i, cp.j, cp.score, cp.type
     hb = ci - cut_row
     assert hb >= 1
@@ -288,10 +441,23 @@ def reverse_pass_and_match(
     row_init, col_init = init_types_for(t)
     backend = resolve_backend(backend, hb * max(width, 1), 16_000_000,
                               device)
+    # the match on the device: not on the column-0 border, nor for the
+    # oracle
+    use_dev = (dev_cut is not None and width > 0 and j_low >= 1
+               and backend != "numpy")
+    if stats is not None:
+        if use_dev:
+            stats.dev_matches += 1
+        else:
+            stats.host_matches += 1
 
     # Matching frame: index k runs j = cj - k for k in [0, width].
-    fwd_cut_h = np.asarray(fwd_h, np.int64)[j_low:cj + 1][::-1]
-    fwd_cut_f = np.asarray(fwd_f, np.int64)[j_low:cj + 1][::-1]
+    fwd_cut_h = fwd_cut_f = None
+    if not use_dev:
+        if fwd_h is None:
+            fwd_h, fwd_f = fwd_rows_fn()
+        fwd_cut_h = np.asarray(fwd_h, np.int64)[j_low:cj + 1][::-1]
+        fwd_cut_f = np.asarray(fwd_f, np.int64)[j_low:cj + 1][::-1]
     if width == 0:
         # Degenerate window: only the straight-up border column exists.
         rev_h, _ = border_cells(hb + 1, col_init, params)
@@ -312,7 +478,12 @@ def reverse_pass_and_match(
         mgr.track_best = goal_anywhere
         mgr.last_column_wanted = want_rev_col
         mgr.reverse_f0 = _border_f_value(col_init, hb, params)
-        mgr.set_goal_score(goal, base_row=(fwd_cut_h, fwd_cut_f))
+        if use_dev:
+            mgr.set_goal_score(goal)
+            mgr.goal_base_dev = (dev_cut[0], dev_cut[1], cj - dev_cut_off,
+                                 width + 1)
+        else:
+            mgr.set_goal_score(goal, base_row=(fwd_cut_h, fwd_cut_f))
         part = Partition(len(seq0) - ci, len(seq1) - cj,
                          len(seq0) - cut_row, len(seq1) - j_low)
         aligner.set_sequences(*rev_seqs)
@@ -353,6 +524,32 @@ def reverse_pass_and_match(
         rev_col=rev_col)
 
 
+def _windowed_cut_ok(backend: str, hb: int, width: int, device) -> bool:
+    """Would this hop run the strip kernel on a card?  Only there does a
+    window of the stored cut, read alone and matched on the device, stand
+    in for the whole row (reverse_pass_and_match's backend rule)."""
+    if width <= 0 or torch.device(device).type != "cuda":
+        return False
+    return resolve_backend(backend, hb * width, 16_000_000,
+                           device) == "kernel"
+
+
+def _fetch_window_cut(specials, r: int, cj: int, j_low: int, device):
+    """The stored cut's [j_low, cj] column window as tensors on
+    ``device`` (a store's get_window reads only the window of a row in
+    the "none" codec).  Returns ((dev_h, dev_f, h0, f0), cut_off) or None;
+    cut_off is the bus index of the window's element 0, j_low - 1."""
+    get_window = getattr(specials, "get_window", None)
+    if get_window is None:
+        return None
+    wh, wf_ = get_window(r, j_low, cj + 1)
+    if len(wh) != cj + 1 - j_low:
+        return None
+    dev_h = torch.from_numpy(np.ascontiguousarray(wh, np.int32)).to(device)
+    dev_f = torch.from_numpy(np.ascontiguousarray(wf_, np.int32)).to(device)
+    return (dev_h, dev_f, 0, 0), j_low - 1
+
+
 def reverse_march(
     seq0: np.ndarray,
     seq1: np.ndarray,
@@ -368,16 +565,21 @@ def reverse_march(
     on_crosspoint=None,
     fix_origin: bool = True,
     device="cuda",
+    dev_cache: DevRowCache | None = None,
+    stats: MarchStats | None = None,
 ) -> list[Crosspoint]:
     """The stage-2 loop: march crosspoints from `endpoint` back toward the
     origin, matching at stored special rows (virtual row 0 included).
 
     ``specials`` is any row store with ``get``, ``next_below`` and
     ``truncate_above``: a SpecialRowStore, or a special-rows-area
-    partition (``core/sra``), which the runner passes.  Returns
-    crosspoints ordered from start to endpoint (ascending i).
-    row_init/col_init describe the matrix borders, used for the final
-    row-0 matching and origin fixups."""
+    partition (``core/sra``), which the runner passes.  A hop whose row
+    ``dev_cache`` holds matches on the device; one whose row it lacks
+    reads the cut's window from the store where the hop runs the kernel
+    on a card (``_windowed_cut_ok``); the rest match on the host.
+    ``stats`` counts them.  Returns crosspoints ordered from start to
+    endpoint (ascending i).  row_init/col_init describe the matrix
+    borders, used for the final row-0 matching and origin fixups."""
     n = len(seq1)
     sw_anywhere = alignment_start == AlignmentStart.ANYWHERE
     cps: list[Crosspoint] = [endpoint]
@@ -398,12 +600,23 @@ def reverse_march(
             # row and rematches at the next one below; only a full-width
             # miss at virtual row 0 is a lost backtrace
             r = specials.next_below(cp.i, dist)
+            dev_cut = fwd_rows_fn = None
+            window_viable = False
             if r is None or r == 0:
                 r = 0
                 fh = row0_h.astype(np.int64)
                 ff = np.full(n + 1, NEG, np.int64)
             else:
-                fh, ff = specials.get(r)
+                dev_cut = dev_cache.get(r) if dev_cache is not None else None
+                window_viable = (dev_cut is None and _windowed_cut_ok(
+                    backend, cp.i - r, cp.j, device))
+                if dev_cut is None and not window_viable:
+                    fh, ff = specials.get(r)
+                else:
+                    # the host row only if a try falls back to the host
+                    fh = ff = None
+                    fwd_rows_fn = functools.cache(
+                        functools.partial(specials.get, r))
             goal_anywhere = (sw_anywhere
                              and goal_reachable(cp, r, params.match))
             # free column border: the path may start mid-border at (i, 0)
@@ -411,11 +624,29 @@ def reverse_march(
                         and col_init == InitType.WITH_ZEROES)
             j_low = cp.j - initial_window(cp, r, backend)
             while True:
+                cut, cut_off = dev_cut, 0
+                if window_viable and j_low > 0:
+                    # the window the pass will take (its power-of-two
+                    # width), read alone
+                    j_low_q = max(cp.j - (1 << (cp.j - j_low - 1)
+                                          .bit_length()), 0)
+                    if j_low_q >= 1 and _windowed_cut_ok(
+                            backend, cp.i - r, cp.j - j_low_q, device):
+                        got = _fetch_window_cut(specials, r, cp.j, j_low_q,
+                                                device)
+                        if got is not None:
+                            cut, cut_off = got
+                            if stats is not None:
+                                stats.window_reads += 1
+                                stats.window_bytes += 8 * (cp.j + 1
+                                                           - j_low_q)
                 rm = reverse_pass_and_match(
                     seq0, seq1, params, cp, r, fh, ff, max(j_low, 0),
                     goal_anywhere, backend=backend, cfg=cfg,
                     rev_seqs=rev_seqs, want_rev_col=free_col and j_low <= 0,
-                    free_col_start=free_col, device=device)
+                    free_col_start=free_col, device=device, dev_cut=cut,
+                    fwd_rows_fn=fwd_rows_fn, dev_cut_off=cut_off,
+                    stats=stats)
                 if rm.start_found:
                     si, sj = rm.start
                     cp = Crosspoint(si, sj, 0, CrosspointType.MATCH)
@@ -437,6 +668,8 @@ def reverse_march(
         if on_crosspoint:
             on_crosspoint(cp)
         specials.truncate_above(cp.i)
+        if dev_cache is not None:
+            dev_cache.truncate_above(cp.i)
 
     # Origin fixup: a crosspoint resting on a gapped border extends to the
     # origin.

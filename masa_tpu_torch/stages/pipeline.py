@@ -124,12 +124,16 @@ def stage1_pass(
     store: core.SpecialRowStore | None = None,
 ) -> tuple[core.FwdResult, Crosspoint]:
     """Stage 1: full forward pass.  Returns the pass result and the
-    alignment endpoint crosspoint."""
+    alignment endpoint crosspoint.  The special rows stay on the device
+    for stage 2 (``res.dev_cache``) and, where they fit its budget, reach
+    the store lazily: a RAM row that stage 2 matches on the device never
+    crosses to the host."""
     m, n = len(seq0), len(seq1)
     row_init, col_init = _mode_inits(pcfg.alignment_start)
     rec = _recurrence(pcfg.alignment_start)
     end = _effective_end(pcfg)
     iv = pcfg.flush_interval or auto_flush_interval(m, n)
+    cache = core.DevRowCache(core.row_cache_budget(pcfg.device))
     res = core.forward_pass(
         seq0, seq1, pcfg.params, rec, row_init, col_init,
         special_every=iv, store=store, backend=pcfg.backend,
@@ -138,7 +142,9 @@ def stage1_pass(
                              AlignmentStart.SEQUENCE_1_OR_2),
         nw_best=(end == AlignmentStart.ANYWHERE
                  and rec == Recurrence.NEEDLEMAN_WUNSCH),
-        device=pcfg.device,
+        device=pcfg.device, dev_cache=cache,
+        lazy_rows=core.lazy_rows_fit(m // iv * 8 * n, cache.budget,
+                                     pcfg.device),
     )
     endpoint = select_endpoint(res, m, n, end, rec)
     if endpoint.i == m:
@@ -153,13 +159,18 @@ def stage2_march(
     pcfg: PipelineConfig,
     endpoint: Crosspoint,
     specials: core.SpecialRowStore,
+    dev_cache: core.DevRowCache | None = None,
+    stats: core.MarchStats | None = None,
 ) -> list[Crosspoint]:
+    """Stage 2: the reverse march over stage 1's rows (``dev_cache``:
+    the rows stage 1 kept on the device)."""
     row_init, col_init = _mode_inits(pcfg.alignment_start)
     return core.reverse_march(
         seq0, seq1, pcfg.params, endpoint, specials,
         row_init, col_init, pcfg.alignment_start,
         min_dist=pcfg.min_dist, backend=pcfg.backend,
-        cfg=pcfg.kernel_cfg, device=pcfg.device,
+        cfg=pcfg.kernel_cfg, device=pcfg.device, dev_cache=dev_cache,
+        stats=stats,
     )
 
 
@@ -282,10 +293,12 @@ def align_pair(
     pcfg: PipelineConfig | None = None,
     sequences: list[Sequence] | None = None,
     on_stage=None,
+    stats: core.MarchStats | None = None,
 ) -> Alignment:
     """The full pipeline on raw encoded sequences.  ``on_stage(name,
     seconds, result)``, when given, is called as each stage ends, with its
-    host-clock time up to a device sync."""
+    host-clock time up to a device sync; ``stats`` counts stage 2's
+    matches and window reads."""
     pcfg = pcfg or PipelineConfig()
     dev = resolve_device(pcfg.device)
 
@@ -300,7 +313,8 @@ def align_pair(
 
     res, endpoint = run("stage1", stage1_pass, seq0, seq1, pcfg)
     cps = run("stage2", stage2_march, seq0, seq1, pcfg, endpoint,
-              res.specials)
+              res.specials, res.dev_cache, stats)
+    res = None  # the rows' device memory goes back
     cps = run("stage3", stage3_densify, seq0, seq1, pcfg, cps)
     if pcfg.max_partition:
         reduce = functools.partial(mm.stage4_reduce,

@@ -174,15 +174,20 @@ def test_reduce_chunks_a_level_by_bus_cells(monkeypatch):
 
 
 def test_stage4_reduce_uses_native_ladder_on_cpu():
-    from masa_tpu.native import bindings as jbindings
+    """Stage 4 on the CPU takes the port's native ladder, equal to
+    masa_tpu's native ladder (its library built apart from masa_tpu's own
+    in-place build, ``reference_native``)."""
     from masa_tpu_torch.native import bindings
 
-    if not (bindings.available() and jbindings.available()):
-        pytest.skip("the native libraries are not built here")
+    from test_torch_hostcopy import reference_native
+
+    if not bindings.available():
+        pytest.skip("no C++ compiler for the native library here")
     s0, s1, cps = nw_pair(3, 500, 10)
     got = myers_miller.stage4_reduce(s0, s1, port(cps), PP, 16, device="cpu")
     assert got == bindings.reduce_partitions(s0, s1, port(cps), PP, 16)
-    assert got == jbindings.reduce_partitions(s0, s1, cps, P, 16)
+    with reference_native() as jbindings:
+        assert got == jbindings.reduce_partitions(s0, s1, cps, P, 16)
 
 
 @pytest.mark.parametrize("start", ["*", "!"])

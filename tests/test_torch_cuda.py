@@ -662,3 +662,36 @@ def test_sharded_align_on_the_card(cuda):
     from masa_tpu_torch.tools.dryrun_multichip import dryrun_multichip
 
     assert dryrun_multichip(3, "cuda") == 600
+
+
+def test_row_pull_copies_on_a_side_stream(cuda):
+    """A RowPull's copy to pinned host memory runs on its side stream and
+    lands as the row; ready() turns true once it has."""
+    from masa_tpu_torch.ops.strips import RowPull
+
+    h = torch.arange(-5, 70000, dtype=torch.int32, device=cuda)
+    f = -h
+    pull = RowPull(h, f, torch.cuda.Stream(cuda))
+    assert not pull.ready()
+    got_h, got_f = pull.start().rows()
+    assert pull.ready() and pull._host.is_pinned()
+    assert np.array_equal(got_h, h.cpu().numpy())
+    assert np.array_equal(got_f, f.cpu().numpy())
+
+
+def test_goal_match_on_the_card_matches_cpu(cuda):
+    """goal_match_device on CUDA tensors gives the CPU's verdicts."""
+    rng = np.random.default_rng(5)
+    cut_h, cut_f = (rng.integers(-60, 60, 4000) for _ in range(2))
+    for _ in range(40):
+        cj = int(rng.integers(2, 4000))
+        w = int(rng.integers(1, cj))
+        rev_h, rev_f = (rng.integers(-60, 60, w) for _ in range(2))
+        goal = int(rng.integers(-30, 90))
+        args = [torch.tensor(x, dtype=torch.int32)
+                for x in (cut_h, cut_f, rev_h, rev_f)]
+        want = wf.goal_match_device(*args, cj, goal, -5, -7, W1=w + 1,
+                                    go=3)
+        got = wf.goal_match_device(*(a.to(cuda) for a in args), cj, goal,
+                                   -5, -7, W1=w + 1, go=3)
+        assert got.is_cuda and got.cpu().tolist() == want.tolist()

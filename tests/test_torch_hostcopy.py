@@ -10,9 +10,16 @@ results: tolerance 0, as everything is integer or bytes.  Values cross
 between the packages only through ``masa_tpu_torch.convert``.
 """
 
+import contextlib
+import ctypes
 import dataclasses
+import fcntl
+import hashlib
 import io
 import os
+import shutil
+import subprocess
+import tempfile
 
 import numpy as np
 import pytest
@@ -133,11 +140,67 @@ def run_smallsw(pkg):
     return out + [aln]
 
 
-def run_native(pkg):
-    b, t, o = (mod(pkg, "native.bindings"), mod(pkg, "types"),
-               mod(pkg, "ops.oracle"))
+def _reference_native_lib() -> str:
+    """masa_tpu/native/masanative.cpp built once, under a file lock, into
+    a temporary path named by the source's hash (g++ writes a temporary
+    file that is then renamed into place)."""
+    from masa_tpu.native import bindings
+
+    with open(bindings._SRC, "rb") as fh:
+        digest = hashlib.sha256(fh.read()).hexdigest()[:16]
+    out = os.path.join(tempfile.gettempdir(), f"masa_tpu_native_{digest}.so")
+    with open(out + ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not os.path.exists(out):
+            tmp = f"{out}.{os.getpid()}.tmp"
+            subprocess.run(["g++", "-O3", "-march=native", "-shared",
+                            "-fPIC", "-std=c++17", "-pthread",
+                            bindings._SRC, "-o", tmp],
+                           check=True, capture_output=True, timeout=300)
+            os.replace(tmp, out)
+    return out
+
+
+@contextlib.contextmanager
+def reference_native():
+    """masa_tpu's native bindings over a library of their own source.
+    masa_tpu builds its library in place (``_masanative.so`` beside the
+    source), so a process that loads it while another test worker writes
+    it keeps no library and its native tests skip; here the library comes
+    from ``_reference_native_lib`` and is handed to the bindings, after
+    their own ``_configure``, for the block."""
+    from masa_tpu.native import bindings
+
+    if shutil.which("g++") is None:
+        pytest.skip("no C++ compiler for the native library here")
+    lib = ctypes.CDLL(_reference_native_lib())
+    bindings._configure(lib)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(bindings, "_LIB", lib)
+        mp.setattr(bindings, "_TRIED", True)
+        yield bindings
+
+
+@contextlib.contextmanager
+def native_bindings(pkg):
+    """``pkg``'s native bindings with their library loaded."""
+    if pkg is masa_tpu:
+        with reference_native() as b:
+            yield b
+        return
+    b = mod(pkg, "native.bindings")
     if not b.available():
         pytest.skip("no C++ compiler for the native library here")
+    yield b
+
+
+def run_native(pkg):
+    with native_bindings(pkg) as b:
+        return run_native_with(b, pkg)
+
+
+def run_native_with(b, pkg):
+    t, o = mod(pkg, "types"), mod(pkg, "ops.oracle")
     s0, s1 = pair(21, 700, 690, rate=0.05)
     p = t.ScoreParams()
     nw = t.Recurrence.NEEDLEMAN_WUNSCH
@@ -572,6 +635,29 @@ def test_files_cross_packages(wr, rd, tmp_path):
     back = mod(rd, "biology.alignment").read_cgff(str(tmp_path / "a"))
     assert plain(back.gaps) == plain(aln.gaps)
     assert back.raw_score == aln.raw_score
+
+
+def test_package_data_ships_every_kernel_source():
+    """A non-editable install carries every file the kernels build from:
+    each file under masa_tpu_torch/csrc/ (the header the three kernel
+    sources include, too) and the native source match a package-data
+    glob of pyproject.toml."""
+    import fnmatch
+    import tomllib
+
+    with open(os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "pyproject.toml"), "rb") as fh:
+        globs = tomllib.load(fh)["tool"]["setuptools"]["package-data"][
+            "masa_tpu_torch"]
+    top = os.path.dirname(masa_tpu_torch.__file__)
+    files = [os.path.relpath(os.path.join(d, f), top)
+             for sub in ("csrc", "native")
+             for d, _, fs in os.walk(os.path.join(top, sub)) for f in fs
+             if not f.endswith((".py", ".pyc"))]
+    assert "csrc/gotoh_cell.cuh" in files and "native/masanative.cpp" \
+        in files
+    assert [f for f in files
+            if not any(fnmatch.fnmatch(f, g) for g in globs)] == []
 
 
 def test_version_is_the_projects():

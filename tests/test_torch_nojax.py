@@ -106,17 +106,21 @@ finally:
 
 def test_cli_runs_with_jax_blocked(tmp_path):
     """``python -m masa_tpu_torch --device cpu a.fa b.fa`` with ``import
-    jax`` made to fail: the full persistent run prints masa_tpu's score
-    line (the oracle's score for the pair)."""
+    jax`` made to fail: the full persistent run, in one call, prints
+    masa_tpu's score line (the oracle's score for the pair), and its stage
+    2 matches on the device from the rows stage 1 kept there (the pair's
+    path runs clear of column 0, where the device match serves)."""
     import numpy as np
 
     from masa_tpu.ops import oracle
 
     rng = np.random.default_rng(42)
-    s0 = rng.choice(np.frombuffer(b"ACGT", np.uint8), 1500)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    s0 = rng.choice(bases, 1500)
     s1 = s0.copy()
     idx = rng.random(1500) < 0.08
-    s1[idx] = rng.choice(np.frombuffer(b"ACGT", np.uint8), int(idx.sum()))
+    s1[idx] = rng.choice(bases, int(idx.sum()))
+    s1 = np.concatenate([rng.choice(bases, 4500), s1])
     for name, s in (("a.fa", s0), ("b.fa", s1)):
         (tmp_path / name).write_bytes(b">" + name.encode() + b"\n"
                                       + s.tobytes() + b"\n")
@@ -128,6 +132,10 @@ def test_cli_runs_with_jax_blocked(tmp_path):
     assert r.returncode == 0, r.stderr[-3000:]
     best = oracle.dp_rows(s0, s1).best
     assert f"alignment score: {best}  (matches=" in r.stdout, r.stdout
+    with open(tmp_path / "w" / "statistics_02.00") as fh:
+        stats = dict(line.split(":") for line in fh if ":" in line)
+    assert int(stats["  dev_matches"]) >= 2, stats
+    assert int(stats["  window_reads"]) == 0, stats
 
 
 def _blocked_fastas(tmp_path):

@@ -318,19 +318,26 @@ def test_six_stages_through_the_rule(bench_pair, tmp_path, monkeypatch,
     cfg = wf.StripConfig(rows=2048, launch_prune=(64, 2))
     msgs = []
     if crash:
-        put = runner._OffsetStore.put
+        # the crash comes in the third row handed to the store, eager
+        # (put) or lazy (put_lazy: the runner's rows on the strip engine)
         calls = {"n": 0}
+        saved = {k: getattr(runner._OffsetStore, k)
+                 for k in ("put", "put_lazy")}
 
-        def dying(self, r, h, f):
-            calls["n"] += 1
-            if calls["n"] > 2:
-                raise KeyboardInterrupt("simulated crash")
-            put(self, r, h, f)
+        def dying(name):
+            def store(self, r, *row):
+                calls["n"] += 1
+                if calls["n"] > 2:
+                    raise KeyboardInterrupt("simulated crash")
+                saved[name](self, r, *row)
+            return store
 
-        monkeypatch.setattr(runner._OffsetStore, "put", dying)
+        for name in saved:
+            monkeypatch.setattr(runner._OffsetStore, name, dying(name))
         with pytest.raises(KeyboardInterrupt):
             runner.stage1(mine, s0, s1, kernel_cfg=cfg, log=quiet)
-        monkeypatch.setattr(runner._OffsetStore, "put", put)
+        for name, fn in saved.items():
+            monkeypatch.setattr(runner._OffsetStore, name, fn)
         mine = Job(mine.cfg, device="cpu")
     aln = runner.align_job(mine, s0, s1, kernel_cfg=cfg, log=msgs.append)
     want = jrunner.align_job(ref, s0, s1, log=quiet)
