@@ -7,8 +7,8 @@ of its stage-4 launches, for ``tools/batched_tune.py --tables``).
 
 Phases (any failure raises and the run exits non-zero):
   1. the card's name and power limit; build csrc/strip.cu,
-     csrc/batched_strip.cu and csrc/roofline.cu with nvcc, one process
-     each, all started together;
+     csrc/batched_strip.cu, csrc/roofline.cu and csrc/hop.cu with nvcc,
+     one process each, all started together;
   2. each kernel against its plain PyTorch version on the card, exact
      integer equality.  The strip kernel: SW/NW x four border types x full
      and partial heights x flush on/off x best/last-column tracking x odd
@@ -21,7 +21,16 @@ Phases (any failure raises and the run exits non-zero):
      kernel: CUSTOM borders, odd widths, 1 to 3000 elements, tall
      elements that chain sub-strips; then timed at 8192 x 64 x 128.  Every
      roofline body (the TPU tool's five and the three with the kernels'
-     own cell) at 0, 1 and 61 iterations;
+     own cell) at 0, 1 and 61 iterations.  The stage-2 hop's prologue
+     and epilogue (csrc/hop.cu, ``tools/hop_tune.check``): every
+     crosspoint type, SW and NW, hits at k = 0 and beyond, no stop, an
+     overshoot, ok = 0 on entry, cj < W + 1, a reachable goal, random
+     states, at a small shape (W 4096, hb 512, a cut of 2^16) and at a
+     hop of the 1M pair (W 16384, hb 8192, a cut of 2^20); then timed at
+     the hop of the 1M pair beside their plain versions, outputs held
+     equal there too; the device delta packing against its plain form
+     (the same row on the CPU), and one row of 2^20 pulled to the host
+     as int32 and packed, timed;
   3. the golden real pairs through masa_tpu_torch.align(device="cuda"):
      real1 must score 11367 ending at (16384, 15805), real2 32466;
   4. the bench.py 1M x 1M homologous pair through the six pipeline stages
@@ -32,20 +41,25 @@ Phases (any failure raises and the run exits non-zero):
      budget, the peak device memory) and stage 2's hops matched on the card
      (more than 0, or the run fails) and on the host;
   4b. stage 1 of align_pair's passes on the same pair with the rows handed
-     to the store eagerly and lazily, timed in turns, then stage 2 three
-     ways over the lazy run's rows: on the host (a whole row a hop), from
-     cut windows (no cache) and from the row cache; the three crosspoint
-     lists must be equal, the cache's march must match on the card and the
-     windows' must read windows;
+     to the store eagerly (pulled as int32) and lazily, then stage 2 four ways over the lazy run's rows: on the
+     host (a whole row a hop), from cut windows (no cache), from the row
+     cache hop by hop, and from the row cache with chained hops; the four
+     crosspoint lists must be equal, the cache's marches must match on the
+     card, the windows' must read windows and the chained one must chain
+     hops; each march's sequence uploads and flips are printed;
   5. the CLI on the same pair, written as FASTA files, every special row
      on disk: one full call (stage 2 from the rows stage 1 kept on the
-     card: its hops matched there must be more than 0; the cache's rows,
-     bytes and budget and the peak device memory are printed), then
-     `--stage-1` (lazy rows; block pruning on, the CLI's default: its
-     pruned cells and their share of m n are printed, and none fails the
-     run), the same `--stage-1` again in another work directory with the
-     rows handed over eagerly (its special rows, crosspoint and pruned
-     cells must be the lazy run's, byte for byte), then the full run
+     card: its hops matched there must be more than 0, its chained hops
+     too, and its stage 2 must copy no sequence from the host; the cache's
+     rows, bytes and budget, the peak device memory, the chained hops and
+     segments (one verdict pull each) are printed), then
+     `--stage-1` (lazy rows, written packed; block pruning on, the CLI's
+     default: its pruned cells and their share of m n are printed, and
+     none fails the run), the same `--stage-1` again in another work
+     directory with the rows handed over eagerly (every row must read
+     back through the special-rows area equal to the lazy run's, with the
+     same crosspoint and pruned cells; both runs' bytes on disk are
+     printed), then the full run
      resuming the first (stage 1 reported as already executed, stage 2
      reading cut windows off the disk rows: more than 0) and the full run
      resuming the second with the window reads off (the host match); the
@@ -142,7 +156,7 @@ import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-KERNELS = {  # name -> (source, the TPU kernel it replaces)
+KERNELS = {  # name -> (source, the TPU kernel it replaces, or the code)
     "strip": ("masa_tpu_torch/csrc/strip.cu",
               "masa_tpu/ops/wavefront.py:518"),  # strip_pallas
     "batched_strip": ("masa_tpu_torch/csrc/batched_strip.cu",
@@ -151,7 +165,14 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                             "masa_tpu/ops/wavefront.py:1289"),  # ..._pallas
     "roofline": ("masa_tpu_torch/csrc/roofline.cu",
                  "tools/roofline.py:86"),  # bench_kernel.make_call
+    # no Pallas counterpart: masa_tpu computes both in XLA
+    "hop_prep": ("masa_tpu_torch/csrc/hop.cu",
+                 "masa_tpu/ops/wavefront.py:1216"),  # hop_step_device
+    "hop_match": ("masa_tpu_torch/csrc/hop.cu",
+                  "masa_tpu/ops/wavefront.py:1171"),  # goal_match_device
 }
+# the wrappers whose launches the main-path runs count
+COUNTED = ("strip", "batched_strip", "hop_prep", "hop_match")
 M_1M = 1 << 20
 SCORE_1M = 796634  # masa_tpu's full six-stage score on the 1M pair
 NEG = -999999999
@@ -160,6 +181,13 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 
 def log(*a):
     print(*a, flush=True)
+
+
+def counters():
+    """The wrappers of COUNTED, by name."""
+    from masa_tpu_torch.ops import kernels
+
+    return {k: getattr(kernels, f"{k}_cuda") for k in COUNTED}
 
 
 def card_line() -> str:
@@ -454,6 +482,67 @@ def fixed_main(dev):
         f"kernel {ms:.3f} ms ({cells / ms / 1e6:.2f} GCUPS; {call_ms:.3f} ms "
         f"around the wrapper's call), plain {plain_ms:.3f} ms, equal")
     return launches, err, ms, plain_ms, cells, nbytes(*args, *got)
+
+
+def hop_phase(dev):
+    """Phase 2j: the stage-2 hop's prologue and epilogue against their
+    plain versions on the card (``tools/hop_tune.check``: every type, SW
+    and NW, hits at k = 0 and beyond, no stop, an overshoot, ok = 0 on
+    entry, cj < W + 1, a reachable goal, random states) at a small shape
+    and at the shape the main path gives them (a hop of the 1M pair), the
+    device delta packing against its plain form (the same rows on the
+    CPU: an odd length, one cell, -INF runs, a row of 2^20), then both
+    hop kernels timed at the 1M pair's hop beside their plain versions
+    (``hop_tune.timed``, which holds their outputs equal there), and one
+    row of 2^20 pulled to the host as int32 (the port's eager pull) and
+    packed (masa_tpu's).  Returns (max |diff| at the main path's shape,
+    {name: (ms, plain ms, bytes moved)})."""
+    import numpy as np
+    import torch
+
+    from masa_tpu_torch.ops import wavefront as wf
+    from masa_tpu_torch.tools import hop_tune
+
+    hop_tune.check(dev)
+    err, seen = hop_tune.check(dev, 1 << 20, 16384, 8192)
+    rng = np.random.default_rng(8)
+    side = torch.cuda.Stream(dev)
+    for nj in (1, 777, 1 << 20):
+        v = np.cumsum(rng.integers(-9, 10, nj)).astype(np.int32)
+        v[nj // 3:nj // 3 + 5] = NEG
+        cpu = torch.from_numpy(v)
+        if not torch.equal(wf.delta_pack_device(cpu.to(dev), nj).cpu(),
+                           wf.delta_pack_device(cpu, nj)):
+            raise AssertionError(f"delta_pack_device of {nj} on the card")
+        got = wf.packed_row_host(wf.pull_row_delta_start(cpu.to(dev), nj,
+                                                         side))
+        want = wf.packed_row_host(wf.pull_row_delta_start(cpu, nj))
+        if not all(np.array_equal(x, y) for x, y in zip(got, want)):
+            raise AssertionError(f"the packed pull of {nj} on the card")
+    # one row of 2^20 pulled as int32 and packed, in turns (least of 5)
+    row = cpu.to(dev)
+    pulls = {"int32": lambda: row.cpu().numpy().astype(np.int64),
+             "packed": lambda: wf.pull_row_delta(row, nj)}
+    pull_ms = dict.fromkeys(pulls, float("inf"))
+    for _ in range(5):
+        for name, fn in pulls.items():
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            fn()
+            pull_ms[name] = min(pull_ms[name],
+                                (time.perf_counter() - t0) * 1e3)
+    t = hop_tune.timed(dev)
+    log(f"hop kernels: equal to their plain versions in every case "
+        f"({json.dumps(seen)} at a cut of 2^20, W 16384, hb 8192, and at "
+        f"the small shape); the device packing equal to the CPU's; a row "
+        f"of 2^20 pulled to the host in {pull_ms['int32']:.3f} ms as int32, "
+        f"{pull_ms['packed']:.3f} ms packed (least of 5, host clock); at "
+        f"{json.dumps(t['shape'])}: "
+        + "; ".join(f"{k} {t[k]['ms']:.4f} ms (plain {t[k]['plain_ms']:.3f}"
+                    f" ms, {t[k]['bytes']} bytes)"
+                    for k in ("hop_prep", "hop_match")))
+    return err, {k: (t[k]["ms"], t[k]["plain_ms"], t[k]["bytes"])
+                 for k in ("hop_prep", "hop_match")}
 
 
 def roofline_matrix(dev):
@@ -959,18 +1048,17 @@ def full_run(s0, s1):
     from masa_tpu_torch.ops import kernels
     from masa_tpu_torch.stages import core, pipeline, stage6
 
-    counters = {"strip": kernels.strip_cuda,
-                "batched_strip": kernels.batched_strip_cuda}
+    wrappers = counters()
     pcfg = pipeline.PipelineConfig(device="cuda")
     secs, launches, ncps = {}, {}, {}
-    seen = {k: 0 for k in counters}
+    seen = {k: 0 for k in wrappers}
     stats = core.MarchStats()
 
     def on_stage(name, seconds, out):
         secs[name] = seconds
         launches[name] = {k: c.launches - seen[k]
-                          for k, c in counters.items()}
-        seen.update({k: c.launches for k, c in counters.items()})
+                          for k, c in wrappers.items()}
+        seen.update({k: c.launches for k, c in wrappers.items()})
         if isinstance(out, list):
             ncps[name] = len(out)
         log(f"  {name}: {seconds:.2f} s, launches "
@@ -981,7 +1069,7 @@ def full_run(s0, s1):
         elif name == "stage2":
             log(f"  stage2: {stats.text()}")
 
-    for c in counters.values():
+    for c in wrappers.values():
         c.launches = 0
     kernels.drain_events()
     torch.cuda.reset_peak_memory_stats()
@@ -1002,9 +1090,9 @@ def full_run(s0, s1):
     for s in ("stage1", "stage2", "stage3"):
         if launches[s]["strip"] <= 0:
             raise AssertionError(f"{s} launched no strip kernel")
-    if stats.dev_matches <= 0:
+    if stats.dev_matches <= 0 or stats.chained <= 0:
         raise AssertionError("align_pair's stage 2 matched no hop on the "
-                             "card")
+                             "card, or chained none")
 
 
 def cache_text(cache):
@@ -1032,14 +1120,17 @@ def patched(obj, name, value):
 
 def march_paths(s0, s1):
     """Phase 4b: stage 1 of align_pair on the 1M pair with its rows handed
-    to the store eagerly (each pulled to the host as it comes) and lazily
-    (kept on the card), timed in turns; then stage 2 three ways over the
-    lazy run's rows: on the host (each hop's whole row), from cut windows
-    (no cache) and from the row cache.  The three crosspoint lists must be
-    equal, the cache's march must match on the card and the windows' must
-    read windows."""
+    to the store eagerly (each pulled to the host as int32 as it comes)
+    and lazily (kept on the card); then stage 2 four ways
+    over the lazy run's rows: on the host (each hop's whole row), from cut
+    windows (no cache), from the row cache hop by hop and from the row
+    cache with chained hops.  The four crosspoint lists must be equal, the
+    cache's marches must match on the card and copy no sequence from the
+    host, the windows' must read windows, the chained one must chain.
+    Each march's sequence uploads and flips are printed."""
     import torch
 
+    from masa_tpu_torch.ops import wavefront as wf
     from masa_tpu_torch.stages import core, pipeline
 
     pcfg = pipeline.PipelineConfig(device="cuda")
@@ -1049,40 +1140,52 @@ def march_paths(s0, s1):
         t0 = time.time()
         out = pipeline.stage1_pass(s0, s1, pcfg)
         torch.cuda.synchronize()
-        secs[name] = time.time() - t0
+        secs.setdefault(name, []).append(round(time.time() - t0, 3))
         return out
 
     with patched(core, "lazy_rows_fit", lambda *a: False):
-        eager, ep_eager = stage1("stage1 eager")
-    eager = None
+        _, ep_eager = stage1("stage1 eager")
     res, endpoint = stage1("stage1 lazy")
     if endpoint != ep_eager:
         raise AssertionError(f"eager and lazy stage 1 ended apart: "
                              f"{ep_eager} against {endpoint}")
-    chains, stats = {}, {}
-    for name, cache, windows in (("host", None, False),
-                                 ("windows", None, True),
-                                 ("cache", res.dev_cache, True)):
+    chains, stats, moved = {}, {}, {}
+    for name, cache, windows, chain in (
+            ("host", None, False, False), ("windows", None, True, False),
+            ("cache", res.dev_cache.copy(), True, False),
+            ("chain", res.dev_cache, True, True)):
         stats[name] = core.MarchStats()
+        before = dict(wf.dev_seq_counts)
         t0 = time.time()
         with patched(core, "_windowed_cut_ok", core._windowed_cut_ok
                      if windows else lambda *a, **k: False):
             chains[name] = pipeline.stage2_march(
                 s0, s1, pcfg, endpoint, res.specials.copy(), cache,
-                stats[name])
+                stats[name], chain=chain)
         torch.cuda.synchronize()
-        secs[f"stage2 {name}"] = time.time() - t0
+        secs[f"stage2 {name}"] = round(time.time() - t0, 3)
+        moved[name] = {k: v - before[k] for k, v in wf.dev_seq_counts.items()}
         log(f"  stage 2 {name}: {len(chains[name])} crosspoints in "
-            f"{secs[f'stage2 {name}']:.2f} s; {stats[name].text()}")
+            f"{secs[f'stage2 {name}']:.2f} s; {stats[name].text()}; "
+            f"sequences copied to the card {moved[name]['uploads']}, "
+            f"flipped there {moved[name]['flips']}")
     log("1M pair, stage 1 and stage 2 by path (align_pair's passes): "
-        + json.dumps({k: round(v, 3) for k, v in secs.items()}))
-    if not chains["host"] == chains["windows"] == chains["cache"]:
+        + json.dumps(secs))
+    if not (chains["host"] == chains["windows"] == chains["cache"]
+            == chains["chain"]):
         raise AssertionError("stage 2's paths found other crosspoints")
     if stats["cache"].dev_matches <= 0 or stats["host"].dev_matches:
         raise AssertionError(f"the cache's march matched no hop on the "
                              f"card, or the host's did: {stats}")
     if stats["windows"].window_reads <= 0:
         raise AssertionError("the march without a cache read no window")
+    if stats["chain"].chained <= 0 or stats["cache"].chained:
+        raise AssertionError(f"the chained march chained no hop, or the "
+                             f"hop-by-hop one did: {stats}")
+    if moved["cache"]["uploads"] or moved["chain"]["uploads"]:
+        raise AssertionError(f"a march over stage 1's rows copied a "
+                             f"sequence to the card: {moved}")
+    return secs
 
 
 def kernel_ms_text(ms):
@@ -1096,11 +1199,16 @@ class StageTap(io.StringIO):
     off the launch events."""
 
     def __init__(self):
+        from masa_tpu_torch.ops import wavefront as wf
+
         super().__init__()
         self.kernel_ms = {}
+        self.seq_moves = {}  # sequence uploads and flips by stage
+        self._seq = dict(wf.dev_seq_counts)
 
     def write(self, text):
         from masa_tpu_torch.ops import kernels
+        from masa_tpu_torch.ops import wavefront as wf
 
         m = re.match(r"(stage\d): .* in [\d.]+s", text)
         if m:
@@ -1108,6 +1216,12 @@ class StageTap(io.StringIO):
             mine = self.kernel_ms.setdefault(m.group(1), {})
             for k, v in got.items():
                 mine[k] = mine.get(k, 0.0) + v
+            now = dict(wf.dev_seq_counts)
+            moves = self.seq_moves.setdefault(m.group(1), dict.fromkeys(
+                now, 0))
+            for k, v in now.items():
+                moves[k] += v - self._seq[k]
+            self._seq = now
         return super().write(text)
 
 
@@ -1121,17 +1235,16 @@ def write_fasta(path, desc, seq):
 def run_cli(argv, quiet=("stage1: ... flushed",)):
     """``masa_tpu_torch.cli.main(argv)`` in-process with the kernel counts
     set to 0 just before: its stdout (echoed, less the lines starting with
-    ``quiet``), seconds and strip/batched launches.  A non-zero exit
-    raises."""
+    ``quiet``), seconds and launches of the COUNTED kernels.  A non-zero
+    exit raises.  ``run_cli.last_tap`` keeps the call's StageTap."""
     from masa_tpu_torch import cli
     from masa_tpu_torch.ops import kernels
 
-    counters = {"strip": kernels.strip_cuda,
-                "batched_strip": kernels.batched_strip_cuda}
-    for c in counters.values():
+    wrappers = counters()
+    for c in wrappers.values():
         c.launches = 0
     kernels.drain_events()
-    buf = StageTap()
+    buf = run_cli.last_tap = StageTap()
     t0 = time.time()
     with contextlib.redirect_stdout(buf):
         rc = cli.main(argv)
@@ -1148,7 +1261,7 @@ def run_cli(argv, quiet=("stage1: ... flushed",)):
            if rest else ""))
     if rc != 0:
         raise AssertionError(f"the CLI exited {rc}")
-    return out, secs, {k: c.launches for k, c in counters.items()}
+    return out, secs, {k: c.launches for k, c in wrappers.items()}
 
 
 def stage_seconds(out):
@@ -1203,10 +1316,11 @@ def outputs_of(work):
 def cli_run(fa, fb, tmp, cells):
     """Phase 5: the pair through the CLI in-process, every special row on
     disk.  First one full call (stage 1's rows stay on the card, so stage
-    2 matches there); then --stage-1 (block pruning on, the CLI's default:
-    it must prune; lazy rows), the same --stage-1 again in another work
-    directory with its rows handed over eagerly (its special rows,
-    crosspoint and statistics byte for byte the first one's), then the
+    2 matches there, chained); then --stage-1 (block pruning on, the CLI's
+    default: it must prune; lazy rows, written packed), the same
+    --stage-1 again in another work directory with its rows handed over
+    eagerly (every row reads back equal through the special-rows area,
+    the crosspoint and pruned cells the first one's), then the
     full run resuming the first (no cache: stage 2 reads cut windows off
     the disk rows) and the full run resuming the second with the window
     reads off (the host match, a whole row read a hop).  The three full
@@ -1226,15 +1340,23 @@ def cli_run(fa, fb, tmp, cells):
     one, secs_1, launches_1 = run_cli([fa, fb, "--work-dir", single] + flags)
     peak = torch.cuda.max_memory_allocated()
     st1, st2 = stats_of(single, 1), stats_of(single, 2)
+    moves = run_cli.last_tap.seq_moves
     log(f"CLI 1M pair, one full call: {secs_1:.2f} s; stage 1 kept "
         f"{st1['dev_rows']} rows on the card ({st1['dev_row_bytes']} "
         f"bytes, budget {st1['dev_row_budget']}, lazy {st1['lazy_rows']})"
         f", peak device memory {peak} bytes; stage 2 "
-        + json.dumps({k: st2[k] for k in ("dev_matches", "host_matches",
-                                          "window_reads", "window_bytes")}))
+        + json.dumps({k: st2[k] for k in (
+            "dev_matches", "host_matches", "window_reads", "window_bytes",
+            "chained", "segments", "chain_breaks")})
+        + f" (a verdict pull a segment: {st2['segments']} pulls); "
+        f"sequences copied to the card and flipped there by stage "
+        + json.dumps(moves))
     if st2["dev_matches"] <= 0 or not st1["lazy_rows"]:
         raise AssertionError("the single CLI call's stage 2 matched no hop "
                              "on the card, or its rows were not lazy")
+    if st2["chained"] <= 0 or moves.get("stage2", {}).get("uploads", 1):
+        raise AssertionError("the single CLI call's stage 2 chained no hop, "
+                             "or copied a sequence to the card")
     work = os.path.join(tmp, "w")
     argv = [fa, fb, "--work-dir", work] + flags
     first, secs0, launches0 = run_cli(argv + ["--stage-1"])
@@ -1248,22 +1370,23 @@ def cli_run(fa, fb, tmp, cells):
             [fa, fb, "--work-dir", again, "--stage-1"] + flags)
     if stats_of(again, 1)["lazy_rows"] or not stats_of(work, 1)["lazy_rows"]:
         raise AssertionError("the eager and lazy stage 1 were not so")
-    for sub in ("special_rows", "crosspoints"):
-        lazy, eager = (tree_digests(os.path.join(w, sub))
-                       for w in (work, again))
-        if lazy != eager:
-            raise AssertionError(f"the eager stage 1 wrote other {sub} "
-                                 f"than the lazy one: "
-                                 f"{sorted(set(lazy) ^ set(eager))[:4]} "
-                                 f"or other bytes")
-        if sub == "special_rows":
-            rows = sum(size for size, _ in lazy.values())
+    # lazy rows are masa_tpu's packed form on disk, eager rows the area's
+    # codec: the values read back must agree, not the bytes
+    lazy, eager = (tree_digests(os.path.join(w, "crosspoints"))
+                   for w in (work, again))
+    if lazy != eager:
+        raise AssertionError("the eager stage 1 wrote another crosspoint "
+                             "than the lazy one")
+    n_rows = same_rows(work, again)
+    disk = {w: sum(size for size, _ in tree_digests(
+        os.path.join(w, "special_rows")).values()) for w in (work, again)}
     if pruned_cells_of(again) != pruned:
         raise AssertionError("a repeated stage 1 pruned other cells")
     log(f"CLI 1M pair, --stage-1 lazy {secs0:.2f} s, again eager in "
-        f"another work directory {secs_r:.2f} s: its special rows "
-        f"({rows} bytes) and crosspoint byte for byte the lazy run's, the "
-        f"same {pruned} pruned cells")
+        f"another work directory {secs_r:.2f} s: the same {n_rows} special "
+        f"rows read back, on disk {disk[work]} bytes lazy (packed) and "
+        f"{disk[again]} eager; the same crosspoint and {pruned} pruned "
+        f"cells")
     second, secs1, launches1 = run_cli(argv)
     st2w = stats_of(work, 2)
     with patched(core, "_windowed_cut_ok", lambda *a, **k: False):
@@ -1308,11 +1431,33 @@ def cli_run(fa, fb, tmp, cells):
     if launches1["batched_strip"] <= 0:
         raise AssertionError("the CLI's traceback launched no batched "
                              "strip kernel")
-    return ({"strip": launches_1["strip"] + launches0["strip"]
-             + launches_r["strip"] + launches1["strip"],
-             "batched_strip": launches_1["batched_strip"]
-             + launches1["batched_strip"]}, cps3,
+    return ({k: launches_1[k] + launches0[k] + launches_r[k]
+             + launches1[k] for k in COUNTED}, cps3,
             stage_seconds(first + second), pruned)
+
+
+def same_rows(work, other):
+    """Every special row of two CLI work directories, read back through
+    the port's special-rows area, equal (raises otherwise); returns the
+    number of rows."""
+    import numpy as np
+
+    from masa_tpu_torch.core.sra import SpecialRowsArea
+
+    parts = [SpecialRowsArea(os.path.join(w, "special_rows",
+                                          "stage.01.00")).partitions()
+             for w in (work, other)]
+    if [p.rows() for p in parts[0]] != [p.rows() for p in parts[1]]:
+        raise AssertionError("the two stage-1 runs kept other rows")
+    n = 0
+    for a, b in zip(*parts):
+        for r in a.rows():
+            for x, y in zip(a.get(r), b.get(r)):
+                if not np.array_equal(x, y):
+                    raise AssertionError(f"special row {r} reads back "
+                                         f"other values")
+            n += 1
+    return n
 
 
 def need_launches(what, launches, names=("strip", "batched_strip")):
@@ -1730,6 +1875,9 @@ def main() -> int:
     err["strip"] = max(err["strip"], err_main, err_hop)
     n_fixed, err_fixed, *times["batched_strip_fixed"] = fixed_main(dev)
     err["batched_strip_fixed"] = max(err["batched_strip_fixed"], err_fixed)
+    err_hops, hop_times = hop_phase(dev)
+    err["hop_prep"] = err["hop_match"] = err_hops
+    times.update(hop_times)
     kernels.event_log = []  # time every launch of the main-path runs
     golden_pairs()
     from masa_tpu_torch.tools.pairs import bench_pair
@@ -1782,7 +1930,7 @@ def main() -> int:
         err["strip"] = max(err["strip"], err_ho)
     for m in more:
         for k in launches:
-            launches[k] += m[k]
+            launches[k] += m.get(k, 0)
     kernels.event_log = None
     module_entry()
     launches["batched_strip_fixed"] = n_fixed
@@ -1837,6 +1985,13 @@ def main() -> int:
             bound, by = bound_of(
                 f"{name}, the filling launch of {fill['body']}", ms, cells,
                 moved, 1e3 * cells / by_ops, old_rate, code_rate["tracked"])
+        elif name.startswith("hop_"):
+            # bytes alone: a few a column, so the bound is the bytes over
+            # the memory rate, and a launch's latency sets the time
+            ms, plain_ms, moved = times[name]
+            bound, by = bound_of(f"{name} at a stage-2 hop of the 1M pair",
+                                 ms, 0, moved, rate["untracked"], old_rate,
+                                 code_rate["untracked"])
         else:
             # the strip kernel's timed shape tracks the best; the
             # equal-shape batched kernel tracks nothing

@@ -84,8 +84,10 @@ class Aligner(abc.ABC):
 
 
 class CUDAAligner(Aligner):
-    """The strip engine on ``device``.  The sequences go to the device once
-    per set_sequences; partitions and strips slice them there."""
+    """The strip engine on ``device``.  Its device views of the sequences
+    come from the device sequence cache (``wavefront.dev_seq``), so an
+    array that is there already (stage 1's, the reverse march's flips of
+    them) is not copied again; partitions and strips slice the views."""
 
     def __init__(self, cfg: wf.StripConfig, device):
         super().__init__()
@@ -98,8 +100,8 @@ class CUDAAligner(Aligner):
 
     def set_sequences(self, seq0: np.ndarray, seq1: np.ndarray) -> None:
         super().set_sequences(seq0, seq1)
-        self._dev0 = torch.tensor(self._seq0, device=self.device)
-        self._dev1 = torch.tensor(self._seq1, device=self.device)
+        self._dev0 = wf.dev_seq(self._seq0, self.device)
+        self._dev1 = wf.dev_seq(self._seq1, self.device)
 
     def unset_sequences(self) -> None:
         super().unset_sequences()

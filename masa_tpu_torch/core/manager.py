@@ -1,8 +1,7 @@
 """Taken from ``masa_tpu/core/manager.py`` (the JAX reference).  It
 differs where the reference reaches JAX: the border gap values come from
 the port's ``stages/core``, the device goal match is the port's
-``ops/wavefront.goal_match_device`` over tensors on the pass's device, and
-a lazy row's ``packed`` form is the special-rows area's own row codec.
+``ops/wavefront.goal_match_device`` over tensors on the pass's device.
 
 AlignerManager: the core side of the aligner contract (IManager,
 libmasa/IManager.hpp:90-319; impl common/AlignerManager.cpp).
@@ -22,7 +21,6 @@ from __future__ import annotations
 import numpy as np
 
 from masa_tpu_torch.core.best_score import BestScoreList
-from masa_tpu_torch.io.rowcodec import encode_row
 from masa_tpu_torch.models.scoring import border_cells, match_column
 from masa_tpu_torch.ops import wavefront as wf
 from masa_tpu_torch.types import (
@@ -42,8 +40,9 @@ from masa_tpu_torch.types import (
 class LazyFullRow:
     """A special row whose body is still a device snapshot (an
     ops/strips.RowPull), with the host border element already attached.
-    full_rows() materializes the (n+1,) int64 arrays; packed(codec) the
-    special-rows area's payload of the row in that codec."""
+    full_rows() materializes the (n+1,) int64 arrays; packed() yields the
+    disk-persistable packed form and anchors() its index, beside the
+    border scalars (core/sra.write_row_packed)."""
 
     def __init__(self, pull, border_h: int, border_f: int):
         self.pull = pull
@@ -74,10 +73,11 @@ class LazyFullRow:
         h, f = self.rows32()
         return h.astype(np.int64), f.astype(np.int64)
 
-    def packed(self, codec: str) -> bytes:
-        """The row's payload in ``codec`` (io/rowcodec), byte for byte
-        what an eager row writes."""
-        return encode_row(codec, *self.rows32())
+    def packed(self):
+        return self.pull.packed()
+
+    def anchors(self, stride: int):
+        return self.pull.anchors(stride)
 
 
 class AlignerManager:

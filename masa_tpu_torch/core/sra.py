@@ -1,11 +1,13 @@
 """Taken from ``masa_tpu/core/sra.py`` (the JAX reference).  Rows in
 the packed formats ("MSRP", "MSRQ") decode through the port's
 ``ops/wavefront.decode_packed_row``, so a work directory checkpointed by
-masa_tpu on its device resumes here without JAX.  The port writes no
-packed rows: a lazy row (``put_lazy``) lands on disk in the partition's
-own codec once its asynchronous copy to the host is done, byte for byte
-the row an eager ``put`` writes.  A window of a stored row in the "none"
-codec is read from its file alone (``read_row_window``).
+masa_tpu on its device resumes here without JAX.  A lazy row
+(``put_lazy``) bound for disk lands there as masa_tpu writes it, in the
+device's delta form with its anchors ("MSRQ", ``write_row_packed``), once
+its asynchronous copy of the packed bytes is done; an eager ``put``
+writes the partition's own codec.  A window of a stored row is read from
+its file alone: a "none" row by one seek, an "MSRQ" row from its nearest
+anchor (``read_row_window``).
 
 SRA — the special rows area store: simultaneously the linear-space
 algorithm's data structure and the crash-safe checkpoint format.
@@ -44,6 +46,11 @@ MAGIC_ANCHORED = b"MSRQ"
 # in-flight lazy rows pin device snapshots; bound the pinned bytes
 _PENDING_CAP = 2 << 30
 
+# absolute-value anchors every ANCHOR_STRIDE cells inside MSRQ rows:
+# the index (gathered on the device at the flush, wf.gather_device) by
+# which stage 2 decodes a window of a disk row instead of all of it
+ANCHOR_STRIDE = 1 << 16
+
 # "MSR2" | u8 codec | int64 row | int64 count, then the payload; a "none"
 # payload is a one-array blob (u8 count, u8 dtype, int64 length) of
 # (H, F) int32 pairs, so cell k of the row sits at _NONE_CELLS + 8 k
@@ -55,21 +62,40 @@ def _row_path(dirpath: str, r: int) -> str:
     return os.path.join(dirpath, f"row.{r:010d}.bin")
 
 
-def write_row(dirpath: str, r: int, h: np.ndarray, f: np.ndarray,
-              codec: str = "none") -> int:
-    return write_payload(dirpath, r, len(h), codec, encode_row(codec, h, f))
-
-
-def write_payload(dirpath: str, r: int, count: int, codec: str,
-                  payload: bytes) -> int:
-    """Write an encoded row of ``count`` cells (tmp + rename, so a partial
-    row never looks complete); returns the file's bytes."""
+def _write_file(dirpath: str, r: int, *parts) -> int:
+    """Write row ``r``'s file from its parts, bytes or contiguous arrays,
+    in order (tmp + rename, so a partial row never looks complete);
+    returns the file's bytes."""
     tmp = _row_path(dirpath, r) + ".tmp"
     with open(tmp, "wb") as fh:
-        fh.write(MAGIC + struct.pack("<Bqq", CODECS.index(codec), r, count))
-        fh.write(payload)
+        for part in parts:
+            fh.write(part)
     os.replace(tmp, _row_path(dirpath, r))
-    return _HEADER + len(payload)
+    return sum(memoryview(part).nbytes for part in parts)
+
+
+def write_row(dirpath: str, r: int, h: np.ndarray, f: np.ndarray,
+              codec: str = "none") -> int:
+    return _write_file(dirpath, r, MAGIC + struct.pack(
+        "<Bqq", CODECS.index(codec), r, len(h)), encode_row(codec, h, f))
+
+
+def write_row_packed(dirpath: str, r: int, lazy) -> int:
+    """Persist a manager.LazyFullRow in the device's 4-bit delta form (two
+    nibbles a byte and the escapes at full width) with absolute anchors
+    every ANCHOR_STRIDE cells: no encode on the host, about an eighth of
+    the int32 pair's bytes, and a window decodes from its nearest anchor
+    (read_row_window).  Returns the file's bytes."""
+    (uh, mih, mvh), (uf, mif, mvf) = lazy.packed()
+    anc_h, anc_f = lazy.anchors(ANCHOR_STRIDE)
+    head = MAGIC_ANCHORED + struct.pack(
+        "<qqqqqqqqqq", r, lazy.count, lazy.border_h, lazy.border_f, len(uh),
+        len(mih), len(uf), len(mif), ANCHOR_STRIDE, len(anc_h))
+    return _write_file(dirpath, r, head, *(
+        np.ascontiguousarray(x, t) for x, t in (
+            (uh, np.uint8), (mih, np.int64), (mvh, np.int64),
+            (uf, np.uint8), (mif, np.int64), (mvf, np.int64),
+            (anc_h, np.int64), (anc_f, np.int64))))
 
 
 def _parse_anchored(raw: bytes):
@@ -293,9 +319,10 @@ class SpecialRowsPartition:
         """Lazy placement (manager.LazyFullRow): a RAM-destined row keeps
         its device snapshot and never crosses to the host unless read (a
         RAM row is not crash persistence anyway); a disk-destined row
-        starts its asynchronous copy to the host now and is written in
-        the partition's codec once the bytes land (drained on later puts
-        and at finalize), so stage 1 does not wait on the copy."""
+        starts its asynchronous packed copy to the host now and is written
+        in the device's packed form once the bytes land
+        (``write_row_packed``, drained on later puts and at finalize), so
+        stage 1 neither waits on the copy nor encodes the row."""
         nbytes = 8 * lazy.count + 20
         # in-flight rows charge the disk budget NOW (the write lands in
         # _drain later; without the charge a burst of lazy puts would
@@ -329,8 +356,7 @@ class SpecialRowsPartition:
         """Write the oldest in-flight row, waiting for its copy."""
         r, lazy = self._pending.pop(0)
         self._pending_bytes -= 8 * lazy.count + 20
-        self._disk_bytes += write_payload(self.dir, r, lazy.count,
-                                          self.codec, lazy.packed(self.codec))
+        self._disk_bytes += write_row_packed(self.dir, r, lazy)
         self._disk.add(r)
 
     def finalize(self) -> None:

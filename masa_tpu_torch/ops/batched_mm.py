@@ -61,15 +61,16 @@ class _Half:
 
 
 class _DevSeqs:
-    """The forward and reversed sequence views on the device."""
+    """The forward and reversed sequence views on the device, from the
+    device sequence cache (``wavefront.dev_seq``): the forward arrays are
+    usually there from stage 1 and the reversed views are made by flips
+    on the device, so a warm stage 4 copies nothing from the host."""
 
     def __init__(self, seq0: np.ndarray, seq1: np.ndarray, device):
-        def up(x):
-            return torch.from_numpy(np.ascontiguousarray(x)).to(device)
-
         self.m, self.n = len(seq0), len(seq1)
-        self._views = ((up(seq0), up(seq1)),
-                       (up(seq0[::-1]), up(seq1[::-1])))
+        self._views = tuple(
+            (wf.dev_seq(seq0, device, reverse=rev),
+             wf.dev_seq(seq1, device, reverse=rev)) for rev in (False, True))
 
     def views(self, rev: bool):
         return self._views[rev]

@@ -1,15 +1,15 @@
 """Build and bind the hand-written Hopper kernels (``csrc/*.cu``).
 
 Each kernel source (``csrc/strip.cu``, ``csrc/batched_strip.cu``,
-``csrc/roofline.cu``; all three include ``csrc/gotoh_cell.cuh``, the DP
-cell) is compiled with ``nvcc`` for ``sm_90a`` into its own
+``csrc/roofline.cu``, which include ``csrc/gotoh_cell.cuh``, the DP cell;
+``csrc/hop.cu``, a stage-2 hop's prologue and epilogue) is compiled with ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, at first use, into
 ``masa_tpu_torch/_build/`` (named by the source's hash, so an edited source
 rebuilds), and bound with ``ctypes``.  Nothing here runs when the module is
 imported: the CPU tests import it on hosts with no toolkit.
 
-``strip_cuda``, ``batched_strip_cuda`` and ``batched_strip_fixed_cuda``
-launch their kernels on PyTorch's current stream and count their launches
+``strip_cuda``, ``batched_strip_cuda``, ``batched_strip_fixed_cuda``,
+``hop_prep_cuda`` and ``hop_match_cuda`` launch their kernels on PyTorch's current stream and count their launches
 in ``.launches``; the roofline tool's launcher lives in
 ``masa_tpu_torch/tools/roofline.py``.
 """
@@ -30,7 +30,7 @@ import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = {name: os.path.join(_PKG, "csrc", f"{name}.cu")
-           for name in ("strip", "batched_strip", "roofline")}
+           for name in ("strip", "batched_strip", "roofline", "hop")}
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -152,6 +152,12 @@ _SIGNATURES = {
     "roofline": {
         "masa_roofline_launch": ["i"] * 4 + ["p"] * 3,
         "masa_roofline_blocks_per_sm": ["i"] * 2,
+    },
+    "hop": {
+        "masa_hop_prep_launch": ["p", "i", "p", "i", "i", "i", "i"]
+        + ["p"] * 6,
+        "masa_hop_match_launch": ["p", "p", "i", "p", "p", "p", "p"]
+        + ["i"] * 6 + ["p"],
     },
 }
 
@@ -569,3 +575,89 @@ def batched_strip_fixed_cuda(a, b, col_h, col_e, bus_h, bus_f, corners, *,
 
 
 batched_strip_fixed_cuda.launches = 0
+
+
+def _check_state(name: str, st, dev) -> None:
+    if st.device != dev or st.dtype != torch.int32 or st.dim() != 1 \
+            or st.numel() != 4 or not st.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous (4,) int32 tensor on "
+                         f"{dev}")
+
+
+def hop_prep_cuda(s1r, st, W: int, hb: int, gap_open: int, gap_ext: int):
+    """Launch a hop's prologue (``csrc/hop.cu``, ``hop_prep_kernel``; the
+    contract of ``wavefront.hop_prep_plain``): from the state ``st`` (a
+    (4,) int32 tensor on the card, read there), the window ``b`` of the
+    reversed seq1 ``s1r`` (uint8), the entering bus and the left border.
+    Returns ``(b, bus_h, bus_f, col_h, col_e)``."""
+    dev = s1r.device
+    if dev.type != "cuda":
+        raise ValueError(f"hop_prep_cuda needs CUDA tensors, got {dev}")
+    n = s1r.numel()
+    _check("s1r", s1r, torch.uint8, n, dev)
+    _check_state("st", st, dev)
+    if not (1 <= W < n and hb >= 1) or n >= 1 << 31:
+        raise ValueError(f"a hop of {hb} rows x {W} columns over a "
+                         f"sequence of {n}")
+    i32 = torch.int32
+    b = torch.empty(W, dtype=torch.uint8, device=dev)
+    bus_h, bus_f = (torch.empty(W, dtype=i32, device=dev) for _ in "hf")
+    col_h, col_e = (torch.empty(hb, dtype=i32, device=dev) for _ in "he")
+    lib = load("hop")
+
+    def ptr(x):
+        return ctypes.c_void_p(x.data_ptr())
+
+    with torch.cuda.device(dev), _launch_events("hop_prep"):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.masa_hop_prep_launch(
+            ptr(s1r), n, ptr(st), W, hb, gap_open, gap_ext, ptr(b),
+            ptr(bus_h), ptr(bus_f), ptr(col_h), ptr(col_e),
+            ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"hop prologue launch failed: CUDA error {rc}")
+    hop_prep_cuda.launches += 1
+    return b, bus_h, bus_f, col_h, col_e
+
+
+hop_prep_cuda.launches = 0
+
+
+def hop_match_cuda(cut_h, cut_f, rev_h, rev_f, st_in, st_out, W: int,
+                   hb: int, *, match: int, gap_open: int, gap_ext: int,
+                   sw: bool):
+    """Launch a hop's epilogue (``csrc/hop.cu``, ``hop_match_kernel``; the
+    contract of ``wavefront.hop_match_plain``): one block matches the
+    reverse row ``rev_h``/``rev_f`` (W columns) against the cut
+    ``cut_h``/``cut_f`` at the column in ``st_in`` and writes the next
+    state to ``st_out``, all on the card.  Returns ``st_out``."""
+    dev = cut_h.device
+    if dev.type != "cuda":
+        raise ValueError(f"hop_match_cuda needs CUDA tensors, got {dev}")
+    n = cut_h.numel()
+    for name, x, k in (("cut_h", cut_h, n), ("cut_f", cut_f, n),
+                       ("rev_h", rev_h, W), ("rev_f", rev_f, W)):
+        _check(name, x, torch.int32, k, dev)
+    _check_state("st_in", st_in, dev)
+    _check_state("st_out", st_out, dev)
+    if not (1 <= W and hb >= 1) or n >= 1 << 31:
+        raise ValueError(f"a hop of {hb} rows x {W} columns against a cut "
+                         f"of {n}")
+    lib = load("hop")
+
+    def ptr(x):
+        return ctypes.c_void_p(x.data_ptr())
+
+    with torch.cuda.device(dev), _launch_events("hop_match"):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.masa_hop_match_launch(
+            ptr(cut_h), ptr(cut_f), n, ptr(rev_h), ptr(rev_f), ptr(st_in),
+            ptr(st_out), W, hb, match, gap_open, gap_ext, int(sw),
+            ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"hop epilogue launch failed: CUDA error {rc}")
+    hop_match_cuda.launches += 1
+    return st_out
+
+
+hop_match_cuda.launches = 0

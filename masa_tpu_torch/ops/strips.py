@@ -28,10 +28,13 @@ in-launch rule.
 Special rows can stay where they were computed (``on_special_row_dev``,
 ``on_special_row_lazy``): each row is copied on the device, the copy goes
 to the row cache that stage 2 matches against, and the store gets a
-``RowPull`` that copies it to pinned host memory on a side stream only
-when the store asks (``start``), so stage 1 neither waits on the copies
-nor widens the rows on the host.  A reverse pass matched on the device
-(``want_dev_last``) keeps its last row there too.
+``RowPull`` that packs it on the device in masa_tpu's delta form and
+copies the packed bytes to pinned host memory on a side stream only when
+the store asks (``start``), so stage 1 neither waits on the copies nor
+encodes the rows on the host.  A reverse pass matched on the device
+(``want_dev_last``) keeps its last row there too.  Rows handed over at
+once (eager) are pulled as int32: masa_tpu pulls them packed on any
+device, but on the H100 the int32 pull is the faster (PERF.md).
 """
 
 from __future__ import annotations
@@ -74,29 +77,65 @@ class PartitionResult:
 
 class RowPull:
     """A special row on its device, copied to the host only on demand
-    (the port of ``masa_tpu.ops.strips.RowPull``; masa_tpu's delta packing
-    on the device is left out: the copy is of the int32 row itself).
+    (the port of ``masa_tpu.ops.strips.RowPull``).
 
-    ``start()`` copies the row into pinned host memory on ``stream`` (a
-    side stream, so the copy runs beside later work) and records an event
-    behind it; ``ready()`` asks the event; ``rows()`` waits for it.  On
-    the CPU the copy is immediate."""
+    ``start()`` packs the row in masa_tpu's delta form on the compute
+    stream and copies the packed bytes into pinned host memory on
+    ``stream`` (a side stream, so the copy runs beside later work);
+    ``ready()`` asks whether they have landed; ``packed()`` waits for them
+    and gathers the escapes' exact values from the row on its device: the
+    form ``core/sra.write_row_packed`` persists.  ``rows()`` is the row
+    itself, copied as int32 on the side stream (a read of a RAM row).  On
+    the CPU the copies are immediate."""
 
     def __init__(self, dev_h: torch.Tensor, dev_f: torch.Tensor,
                  stream=None):
         self.dev_h, self.dev_f = dev_h, dev_f
         self.nj = dev_h.numel()
         self._stream = stream
+        self._packed = None  # (DeltaPull of h, DeltaPull of f)
         self._host = None
         self._done = None
 
     def start(self) -> "RowPull":
-        """Begin the copy to the host (idempotent)."""
-        if self._host is not None:
-            return self
+        """Begin the packed copy to the host (idempotent)."""
+        if self._packed is None:
+            self._packed = tuple(
+                wf.pull_row_delta_start(x, self.nj, self._stream,
+                                        snapshot=False)
+                for x in (self.dev_h, self.dev_f))
+        return self
+
+    def ready(self) -> bool:
+        return self._packed is not None and all(
+            wf.delta_ready(x) for x in self._packed)
+
+    def packed(self):
+        """((u, esc_idx, esc_val) of h, the same of f): masa_tpu's packed
+        form, decoded by ``wavefront.decode_packed_row``."""
+        self.start()
+        return tuple(wf.packed_row_host(x) for x in self._packed)
+
+    def anchors(self, stride: int):
+        """(anc_h, anc_f): int64 values at columns 0, stride, 2 stride, ...
+        < nj, gathered on the device (the index by which a window of a
+        disk row decodes alone)."""
+        idx = torch.arange(0, self.nj, stride, device=self.dev_h.device)
+        return tuple(wf.gather_device(x, idx).cpu().numpy().astype(np.int64)
+                     for x in (self.dev_h, self.dev_f))
+
+    def rows(self) -> tuple[np.ndarray, np.ndarray]:
+        """(h, f) int32 host arrays of length nj (no border element)."""
+        if self._host is None:
+            self._copy_rows()
+        if self._done is not None:
+            self._done.synchronize()
+        return self._host[0].numpy(), self._host[1].numpy()
+
+    def _copy_rows(self) -> None:
         if not self.dev_h.is_cuda:
             self._host = torch.stack([self.dev_h, self.dev_f])
-            return self
+            return
         host = torch.empty((2, self.nj), dtype=torch.int32, pin_memory=True)
         self._stream.wait_stream(torch.cuda.current_stream(self.dev_h.device))
         with torch.cuda.stream(self._stream):
@@ -109,18 +148,6 @@ class RowPull:
         self.dev_h.record_stream(self._stream)
         self.dev_f.record_stream(self._stream)
         self._host = host
-        return self
-
-    def ready(self) -> bool:
-        return self._host is not None and (self._done is None
-                                           or self._done.query())
-
-    def rows(self) -> tuple[np.ndarray, np.ndarray]:
-        """(h, f) int32 host arrays of length nj (no border element)."""
-        self.start()
-        if self._done is not None:
-            self._done.synchronize()
-        return self._host[0].numpy(), self._host[1].numpy()
 
 
 def _border_vec(init, params, length, start, custom):

@@ -39,13 +39,14 @@ its own.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from masa_tpu_torch.types import INF, InitType, Recurrence
+from masa_tpu_torch.types import CrosspointType, INF, InitType, Recurrence
 from masa_tpu_torch.ops import kernels
 
 NEG = -INF
@@ -548,3 +549,369 @@ def goal_match_device(cut_h, cut_f, rev_h, rev_f, cj: int, goal: int,
     score = torch.where(hit, torch.where(m_at, fwd_h[at], fwd_f[at]), 0)
     return torch.stack([status, torch.where(idx >= W1, -1, at),
                         score]).int()
+
+
+# ---------------------------------------------------------------------------
+# The device sequence cache (the port of masa_tpu's dev_seq family)
+# ---------------------------------------------------------------------------
+#
+# Key: (host pointer, length, reversed, pad, device) and a sampled
+# fingerprint of the host array, as masa_tpu keys its views, with the
+# array's dtype and strides (two views of one buffer may share a pointer
+# and a length).  An entry also
+# holds the host array, so no other array can take its address while the
+# entry lives.  The views are uint8, as the kernels take them; masa_tpu
+# pads its int32 views with a sentinel so that any fixed-size slice stays
+# in bounds, which the port's kernels, taking exact-length views, do not
+# need: its callers ask for no pad, and a pad (PAD_CHAR bytes) serves only
+# the rule that a larger-pad entry serves a smaller-pad request.
+
+_DEV_SEQ_CACHE: "collections.OrderedDict | None" = None
+DEV_SEQ_ENTRIES = 10         # the LRU's bound in entries
+DEV_SEQ_BYTES = 2 << 30      # and in bytes
+PAD_CHAR = 0xFF              # a pad byte: no encoded base has it
+# What the cache did since the counts were last set to 0: sequences copied
+# from the host, and views made by a flip of a cached twin on the device.
+dev_seq_counts = {"uploads": 0, "flips": 0}
+
+
+def _device_of(device) -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def _dev_seq_key(arr: np.ndarray, reverse: bool, pad: int, dev) -> tuple:
+    a = np.asarray(arr)
+    n = len(a)
+    step = max(n // 16, 1)
+    fp = bytes(a[::step][:32].tobytes())
+    return (a.__array_interface__["data"][0], n, reverse, pad, str(dev),
+            a.dtype.str, a.strides, fp)
+
+
+def _dev_seq_find(a: np.ndarray, reverse: bool, min_pad: int, dev):
+    """A cached entry for this array, direction and device whose pad is at
+    least ``min_pad`` (a larger pad serves).  Returns (key, view) or
+    (None, None)."""
+    if _DEV_SEQ_CACHE is None:
+        return None, None
+    probe = _dev_seq_key(a, reverse, 0, dev)
+    for key, (view, _) in _DEV_SEQ_CACHE.items():
+        if key[:3] == probe[:3] and key[4:] == probe[4:] \
+                and key[3] >= min_pad:
+            return key, view
+    return None, None
+
+
+def _padded(body: torch.Tensor, pad: int) -> torch.Tensor:
+    if not pad:
+        return body
+    return torch.cat([body, torch.full((pad,), PAD_CHAR, dtype=torch.uint8,
+                                       device=body.device)])
+
+
+def _flipped(twin: torch.Tensor, n: int, pad: int) -> torch.Tensor:
+    dev_seq_counts["flips"] += 1
+    return _padded(twin[:n].flip(0), pad)
+
+
+def _dev_seq_put(key, view, host) -> None:
+    _DEV_SEQ_CACHE[key] = (view, host)
+    while len(_DEV_SEQ_CACHE) > DEV_SEQ_ENTRIES or sum(
+            v.numel() for v, _ in _DEV_SEQ_CACHE.values()) > DEV_SEQ_BYTES:
+        _DEV_SEQ_CACHE.popitem(last=False)
+
+
+def dev_seq(arr: np.ndarray, device, pad: int = 0,
+            reverse: bool = False) -> torch.Tensor:
+    """A uint8 view of ``arr`` (reversed if asked) on ``device``, copied
+    there once and cached (the port of ``masa_tpu.ops.wavefront.dev_seq``,
+    masa_tpu's rules): an entry of the same direction with at least this
+    pad serves as it is; an entry of the other direction serves by a flip
+    on the device, never unflipped and with no copy from the host; else
+    the array is copied.  The cache holds at most DEV_SEQ_ENTRIES views and
+    DEV_SEQ_BYTES bytes, the least recently used leaving first."""
+    global _DEV_SEQ_CACHE
+    if _DEV_SEQ_CACHE is None:
+        _DEV_SEQ_CACHE = collections.OrderedDict()
+    a = np.asarray(arr)
+    dev = _device_of(device)
+    hitk, hit = _dev_seq_find(a, reverse, pad, dev)
+    if hit is not None:
+        _DEV_SEQ_CACHE.move_to_end(hitk)
+        return hit
+    n = len(a)
+    _, twin = _dev_seq_find(a, not reverse, 0, dev)
+    if twin is not None and twin.numel() >= n:
+        view = _flipped(twin, n, pad)
+    else:
+        host = np.ascontiguousarray(a[::-1] if reverse else a, np.uint8)
+        view = _padded(torch.tensor(host, device=dev), pad)
+        dev_seq_counts["uploads"] += 1
+    _dev_seq_put(_dev_seq_key(a, reverse, pad, dev), view, a)
+    return view
+
+
+def dev_seq_peek(arr: np.ndarray, device, pad: int = 0,
+                 reverse: bool = False):
+    """A view of ``arr`` in the asked direction if one can be had with no
+    copy from the host (a cached entry, or a flip of its cached twin),
+    else None."""
+    if _DEV_SEQ_CACHE is None:
+        return None
+    a = np.asarray(arr)
+    dev = _device_of(device)
+    hit = _dev_seq_find(a, reverse, pad, dev)[1]
+    if hit is not None:
+        return hit
+    twin = _dev_seq_find(a, not reverse, 0, dev)[1]
+    if twin is not None and twin.numel() >= len(a):
+        return dev_seq(arr, device, pad, reverse)
+    return None
+
+
+def dev_seq_seed_reversed(fwd_host: np.ndarray, rev_host: np.ndarray,
+                          device, pad: int = 0) -> None:
+    """Cache, under the host array ``rev_host`` (a reversed copy of
+    ``fwd_host``), the flip of ``fwd_host``'s cached view: a consumer that
+    hands over the reversed array (stage 2's reverse march) then finds it
+    with no copy from the host.  Nothing happens when ``fwd_host`` has no
+    view on ``device``."""
+    global _DEV_SEQ_CACHE
+    if _DEV_SEQ_CACHE is None:
+        _DEV_SEQ_CACHE = collections.OrderedDict()
+    rev = np.asarray(rev_host)
+    dev = _device_of(device)
+    if _dev_seq_find(rev, False, pad, dev)[1] is not None:
+        return
+    fwd_key, fwd = _dev_seq_find(np.asarray(fwd_host), False, 0, dev)
+    if fwd is None or fwd.numel() < len(rev):
+        return
+    _DEV_SEQ_CACHE.move_to_end(fwd_key)  # used: it outlives older views
+    _dev_seq_put(_dev_seq_key(rev, False, pad, dev),
+                 _flipped(fwd, len(rev), pad), rev)
+
+
+# ---------------------------------------------------------------------------
+# One stage-2 hop on the device (the port of masa_tpu's hop_step_device)
+# ---------------------------------------------------------------------------
+#
+# A hop's state is an int32 (4,) tensor on the device: the crosspoint's
+# column cj, its score, its CrosspointType and ``ok``.  A hop reads the
+# state left by the hop before it and writes its own, so a chain of hops
+# needs no read on the host until its end.
+
+# The corner of a hop's reverse partition: the border H at its origin,
+# 0 for both codes a hop's border takes (border_h(code, 0)).
+HOP_CORNER = 0
+
+
+def hop_codes(typ):
+    """(row code, column code) of a reverse partition pinned at a
+    crosspoint of type ``typ`` (``stages/core.init_types_for``): the row
+    border continues an open gap only for GAP_1, the column border only
+    for GAP_2."""
+    gaps, opened = int(InitType.WITH_GAPS), int(InitType.WITH_GAPS_OPENED)
+    return (torch.where(typ == CrosspointType.GAP_1, opened, gaps),
+            torch.where(typ == CrosspointType.GAP_2, opened, gaps))
+
+
+def hop_prep_plain(s1r, st, W: int, hb: int, gap_open: int, gap_ext: int):
+    """What a hop's strip starts from, made from its state ``st`` with no
+    read on the host: the window ``b`` of W characters of the reversed
+    sequence ``s1r`` from n - cj on (clamped into the sequence where the
+    hop is not eligible, cj < W + 1: its result is then dropped), the
+    entering bus from the row code and the left border H/E (rows 1..hb)
+    from the column code.  The plain version of ``kernels.hop_prep_cuda``.
+    Returns ``(b, bus_h, bus_f, col_h, col_e)``."""
+    dev = s1r.device
+    n = s1r.numel()
+    j0 = (n - st[0].long()).clamp(min=0, max=n - W)
+    b = s1r[j0 + torch.arange(W, device=dev)]
+    row_code, col_code = hop_codes(st[2])
+    i32 = torch.int32
+    bus_h = border_h_codes(row_code.view(1).long(),
+                           torch.arange(1, W + 1, device=dev, dtype=i32),
+                           gap_open, gap_ext).to(i32)
+    col_h = border_h_codes(col_code.view(1).long(),
+                           torch.arange(1, hb + 1, device=dev, dtype=i32),
+                           gap_open, gap_ext).to(i32)
+    return (b, bus_h, torch.full((W,), NEG, dtype=i32, device=dev), col_h,
+            torch.full((hb,), NEG, dtype=i32, device=dev))
+
+
+def hop_match_plain(cut_h, cut_f, rev_h, rev_f, st_in, st_out, W: int,
+                    hb: int, *, match: int, gap_open: int, gap_ext: int,
+                    sw: bool):
+    """The end of a hop: ``goal_match_device`` of the reverse pass's last
+    row (``rev_h``/``rev_f``, W columns) against the stored cut, and the
+    state update, written to ``st_out``.  The plain version of
+    ``kernels.hop_match_cuda`` (it reads the state on the host).
+
+    The hop is eligible where the host march would take this exact
+    window: cj >= W + 1 (the window clear of column 0) and, under SW, the
+    goal not reachable inside the hop (score > min(hb, cj) * match), else
+    the host would search for the alignment's start.  A hop that is not
+    eligible, that enters with ok = 0 or whose match is not a hit carries
+    (cj, score, type) through with ok = 0; a hit moves to (cj - k, the
+    stored score, MATCH or GAP_2, 1)."""
+    cj, score, typ, ok = (int(x) for x in st_in.tolist())
+    ok = ok and W + 1 <= cj <= cut_h.numel()
+    if sw and score <= min(hb, cj) * match:
+        ok = 0
+    out = [cj, score, typ, 0]
+    if ok:
+        goal = score + (gap_open if typ != CrosspointType.MATCH else 0)
+        # the reverse row's border element: H and F of the column border
+        # at row hb (border_h and stages/core._border_f_value agree there)
+        edge = -hb * gap_ext - (0 if typ == CrosspointType.GAP_2
+                                else gap_open)
+        status, k, got = goal_match_device(
+            cut_h, cut_f, rev_h, rev_f, cj, goal, edge, edge, W1=W + 1,
+            go=gap_open).tolist()
+        if status in (0, 1):
+            out = [cj - k, got, CrosspointType.MATCH if status == 0
+                   else CrosspointType.GAP_2, 1]
+    st_out.copy_(torch.tensor(out, dtype=torch.int32))
+    return st_out
+
+
+def hop_step(a, s1r, cut_h, cut_f, st_in, st_out, W: int, *, match: int,
+             mismatch: int, gap_open: int, gap_ext: int, sw: bool,
+             flags: list | None = None):
+    """One stage-2 hop from the state ``st_in`` to ``st_out``, with no read
+    on the host: the prologue (``hop_prep``), the reverse strip, NW with
+    nothing tracked (the strip kernel, its error flag appended to
+    ``flags``), and the epilogue (``hop_match``).  ``a`` is the hop's
+    rows of the reversed seq0 (hb of them, known on the host: a chain's
+    rows are fixed special rows), ``s1r`` the reversed seq1, ``cut_h``/
+    ``cut_f`` the stored cut (a row of the row cache).  The plain
+    versions run for CPU tensors, the kernels for CUDA tensors; any other
+    device raises."""
+    hb = a.numel()
+    if not 1 <= W < s1r.numel() or hb < 1:
+        raise ValueError(f"a hop of {hb} rows needs 1 <= W < "
+                         f"{s1r.numel()}, got W = {W}")
+    if s1r.device.type == "cpu":
+        prep, finish = hop_prep_plain, hop_match_plain
+    elif s1r.device.type == "cuda":
+        prep, finish = kernels.hop_prep_cuda, kernels.hop_match_cuda
+    else:
+        raise ValueError(f"no hop implementation for device {s1r.device}")
+    b, bus_h, bus_f, col_h, col_e = prep(s1r, st_in, W, hb, gap_open,
+                                         gap_ext)
+    out = strip(a, b, bus_h, bus_f, col_h, col_e, HOP_CORNER, match=match,
+                mismatch=mismatch, gap_open=gap_open, gap_ext=gap_ext,
+                sw=False, flags=flags)
+    return finish(cut_h, cut_f, out.bus_h, out.bus_f, st_in, st_out, W, hb,
+                  match=match, gap_open=gap_open, gap_ext=gap_ext, sw=sw)
+
+
+# ---------------------------------------------------------------------------
+# Delta-packed rows (the port of masa_tpu's delta_pack_device family)
+# ---------------------------------------------------------------------------
+#
+# masa_tpu computes these in XLA outside any Pallas kernel; here they are
+# plain tensor operations on the row's device.  A DP row's neighbouring
+# values differ by a small amount almost everywhere, so each difference is
+# a signed nibble, two a byte (the low nibble first); a difference outside
+# [-7, 7] is written -8, an escape, and its exact value is read from the
+# row on the device.
+
+
+def delta_pack_device(v, nj: int) -> torch.Tensor:
+    """The first nj values of ``v`` as ceil(nj/2) bytes of nibble deltas
+    (the first delta is the first value), on ``v``'s device."""
+    x = v[:nj].to(torch.int64)
+    dh = torch.cat([x[:1], x[1:] - x[:-1]])
+    nib = torch.where((dh >= -7) & (dh <= 7), dh, -8) & 0xF
+    if nj % 2:
+        nib = torch.cat([nib, nib.new_zeros(1)])
+    return (nib[0::2] | (nib[1::2] << 4)).to(torch.uint8)
+
+
+def gather_device(v, idx) -> torch.Tensor:
+    """``v`` at the positions ``idx`` (a tensor on ``v``'s device)."""
+    return v[idx]
+
+
+def _escapes(u, nj: int) -> np.ndarray:
+    """The positions among the first nj nibbles of ``u`` that are escapes
+    (each half of a byte tested where it lies: no nibble array)."""
+    u = np.asarray(u, np.uint8)
+    mark = np.sort(np.concatenate([np.flatnonzero((u & 0xF) == 8) * 2,
+                                   np.flatnonzero((u >> 4) == 8) * 2 + 1]))
+    return mark[mark < nj].astype(np.int64)
+
+
+class DeltaPull(NamedTuple):
+    """A packed row on its way to the host: ``packed`` (host, pinned where
+    the row lies on a card), the row on its device (the escapes' exact
+    values), its length, and the event behind the copy (None on the
+    CPU)."""
+
+    packed: torch.Tensor
+    row: torch.Tensor
+    nj: int
+    done: object
+
+
+def pull_row_delta_start(bus, nj: int, stream=None,
+                         snapshot: bool = True) -> DeltaPull:
+    """Pack ``bus[:nj]`` on the current stream and begin copying the packed
+    bytes to the host, on ``stream`` where given (a side stream: the copy
+    runs beside later work; the packed bytes' memory is kept from reuse
+    until it has read them).  ``snapshot`` keeps a copy of the row for
+    the escapes (masa_tpu's snapshot); a caller whose row is already its
+    own passes False."""
+    row = bus[:nj].clone() if snapshot else bus
+    packed = delta_pack_device(row, nj)
+    if not packed.is_cuda:
+        return DeltaPull(packed, row, nj, None)
+    host = torch.empty(packed.shape, dtype=torch.uint8, pin_memory=True)
+    cur = torch.cuda.current_stream(packed.device)
+    side = stream if stream is not None else cur
+    if side != cur:
+        side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        host.copy_(packed, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(side)
+    if side != cur:
+        packed.record_stream(side)
+    return DeltaPull(host, row, nj, done)
+
+
+def delta_ready(handle: DeltaPull) -> bool:
+    """Whether the packed bytes have landed on the host."""
+    return handle.done is None or handle.done.query()
+
+
+def packed_row_host(handle: DeltaPull):
+    """The packed row as masa_tpu persists it: ``(u, esc_idx, esc_val)``,
+    the packed bytes (uint8), the escapes' positions and their exact
+    values (int64), gathered from the row on its device now, so that the
+    result decodes with no device (``decode_packed_row``)."""
+    if handle.done is not None:
+        handle.done.synchronize()
+    u = handle.packed.numpy()
+    mark = _escapes(u, handle.nj)
+    exact = np.empty(0, np.int64)
+    if len(mark):
+        idx = torch.from_numpy(mark).to(handle.row.device)
+        exact = gather_device(handle.row, idx).cpu().numpy().astype(np.int64)
+    return u, mark, exact
+
+
+def pull_row_delta_finish(handle: DeltaPull) -> np.ndarray:
+    """The host side of a packed pull: the (nj,) int64 row, exact."""
+    return decode_packed_row(*packed_row_host(handle), handle.nj)
+
+
+def pull_row_delta(bus, nj: int) -> np.ndarray:
+    """``bus[:nj]`` pulled packed: ceil(nj/2) bytes and the escapes cross
+    to the host, and the row comes back exact as int64."""
+    return pull_row_delta_finish(pull_row_delta_start(bus, nj,
+                                                      snapshot=False))

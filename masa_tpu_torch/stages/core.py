@@ -15,8 +15,15 @@ its budget the card's own), and a hop whose cut is there matches the
 reverse pass's last row against it in place and pulls three values
 (``wavefront.goal_match_device``).  A hop whose row is not cached (a
 resumed run, an evicted row) reads only the cut's column window from the
-store and matches that on the device (``_fetch_window_cut``).  The hop
-chains of masa_tpu's device march are not ported.
+store and matches that on the device (``_fetch_window_cut``).
+
+On a card the march's steady hops run chained, as masa_tpu's device march
+runs them (``_run_hop_chain``, ``_run_arb_hop``): the march state stays on
+the device between hops (``wavefront.hop_step``), a segment of up to
+CHAIN_HOPS hops is issued with no read on the host and pulls its verdicts
+once, and a hop that is not eligible or does not hit hands the march back
+to the host path from that hop, so the crosspoints are those of the host
+march byte for byte.
 """
 
 from __future__ import annotations
@@ -41,7 +48,7 @@ from masa_tpu_torch.types import (
 )
 from masa_tpu_torch.core.aligner import CPUAligner, CUDAAligner
 from masa_tpu_torch.core.manager import AlignerManager
-from masa_tpu_torch.ops import strips
+from masa_tpu_torch.ops import kernels, strips
 from masa_tpu_torch.ops import wavefront as wf
 
 NEG = -INF
@@ -163,6 +170,14 @@ class DevRowCache:
         for r in [r for r in self._rows if r > i]:
             self._drop(r)
 
+    def copy(self) -> "DevRowCache":
+        """A cache of the same rows (shared, never written), so truncating
+        one cache leaves the other whole."""
+        out = DevRowCache(self.budget)
+        out._rows, out._borders = dict(self._rows), dict(self._borders)
+        out.nbytes = self.nbytes
+        return out
+
     def __len__(self):
         return len(self._rows)
 
@@ -190,17 +205,23 @@ def lazy_rows_fit(pinned_bytes: int, budget: int, device) -> bool:
 @dataclasses.dataclass
 class MarchStats:
     """What a reverse march did: its passes matched where the rows lie
-    and on the host, and the cut windows it read from the store with
-    their int32 H and F bytes."""
+    (the chained hops among them) and on the host, the cut windows it read
+    from the store with their int32 H and F bytes, the hops it handed on
+    from chained segments (an endpoint hop is a segment of one), the
+    segments and those that broke before their end."""
     dev_matches: int = 0
     host_matches: int = 0
     window_reads: int = 0
     window_bytes: int = 0
+    chained: int = 0
+    segments: int = 0
+    chain_breaks: int = 0
 
     def text(self) -> str:
         return (f"matched on the device {self.dev_matches}, on the host "
                 f"{self.host_matches}; window reads {self.window_reads} "
-                f"({self.window_bytes} bytes)")
+                f"({self.window_bytes} bytes); chained {self.chained} in "
+                f"{self.segments} segments, {self.chain_breaks} broken")
 
 
 def border_gap_values(h_border: np.ndarray, params: ScoreParams) -> np.ndarray:
@@ -550,6 +571,120 @@ def _fetch_window_cut(specials, r: int, cj: int, j_low: int, device):
     return (dev_h, dev_f, 0, 0), j_low - 1
 
 
+# Hops a chained segment issues before it reads its verdicts (masa_tpu's
+# cap): what a segment that breaks at its first hop computes in vain.
+CHAIN_HOPS = 32
+
+
+def _hop_window(cp: Crosspoint, r: int, backend: str) -> int:
+    """The window of a hop from ``cp`` to row ``r`` on the host path's
+    first try, where it clears column 0: ``initial_window`` raised to a
+    power of two (``reverse_pass_and_match``'s width rule).  While cj
+    stays above it, it is the same for every hop of one height."""
+    return 1 << (initial_window(cp, r, backend) - 1).bit_length()
+
+
+def _run_segment(rows, cp: Crosspoint, W: int, seq0, params: ScoreParams,
+                 specials, dev_cache, sw: bool, rev_views, cps: list,
+                 on_crosspoint, stats) -> tuple[int, int]:
+    """Issue one hop for each of ``rows`` (descending, each in the row
+    cache) from ``cp`` at window W, the state passed on the device from
+    hop to hop; then read the verdicts and the strip kernels' error flags
+    at once (a set flag raises) and hand on the hops before the first
+    with ok = 0, as the host march would have found them.  Returns
+    (hops handed on, hops issued)."""
+    s0r, s1r = rev_views
+    m = len(seq0)
+    st = torch.empty((len(rows) + 1, 4), dtype=torch.int32,
+                     device=s1r.device)
+    st[0] = torch.tensor([cp.j, cp.score, int(cp.type), 1],
+                         dtype=torch.int32)
+    flags: list = []
+    ci = cp.i
+    for t, r in enumerate(rows):
+        cut = dev_cache.get(r)
+        wf.hop_step(s0r[m - ci:m - r], s1r, cut[0], cut[1], st[t],
+                    st[t + 1], W, match=params.match,
+                    mismatch=params.mismatch, gap_open=params.gap_open,
+                    gap_ext=params.gap_ext, sw=sw, flags=flags)
+        ci = r
+    got = torch.cat([st[1:].reshape(-1)] + flags).cpu().tolist()
+    kernels.check_flags(got[4 * len(rows):])
+    done = 0
+    for r, t in zip(rows, range(0, 4 * len(rows), 4)):
+        cj, score, typ, ok = got[t:t + 4]
+        if not ok:
+            break
+        cp = Crosspoint(r, cj, score, CrosspointType(typ))
+        cps.append(cp)
+        if on_crosspoint:
+            on_crosspoint(cp)
+        specials.truncate_above(r)
+        dev_cache.truncate_above(r)
+        done += 1
+    if stats is not None:
+        stats.segments += 1
+        stats.chained += done
+        stats.dev_matches += done
+        stats.chain_breaks += done < len(rows)
+    return done, len(rows)
+
+
+def _run_hop_chain(seq0, params: ScoreParams, cp: Crosspoint, specials,
+                   dev_cache, sw: bool, rev_views, backend: str, cps: list,
+                   on_crosspoint, stats):
+    """Chain a steady segment of the march on the device (the port of
+    masa_tpu's ``_run_hop_chain``): the next up to CHAIN_HOPS special rows
+    below ``cp`` one spacing hb apart, each in the row cache, at least 3
+    of them, at the window the host path takes for that height
+    (``_hop_window``, which ``cp.j`` must clear).  Each hop checks on the
+    device, with the live state, that it is eligible (cj >= W + 1, under
+    SW the goal out of reach inside the hop); one that is not, or whose
+    match is no hit, hands the march back to the host from there.
+    Returns ``_run_segment``'s (handed on, issued), or None where no
+    segment applies."""
+    r1 = specials.next_below(cp.i, 1)
+    if r1 is None or r1 <= 0:
+        return None
+    hb = cp.i - r1
+    W = _hop_window(cp, r1, backend)
+    if cp.j < W + 1:
+        return None
+    rows, prev = [], cp.i
+    while len(rows) < CHAIN_HOPS:
+        r = specials.next_below(prev, 1)
+        if r is None or r <= 0 or prev - r != hb or dev_cache.get(r) is None:
+            break
+        rows.append(r)
+        prev = r
+    if len(rows) < 3:
+        return None
+    return _run_segment(rows, cp, W, seq0, params, specials, dev_cache, sw,
+                        rev_views, cps, on_crosspoint, stats)
+
+
+def _run_arb_hop(seq0, params: ScoreParams, cp: Crosspoint, specials,
+                 dev_cache, sw: bool, rev_views, backend: str, cps: list,
+                 on_crosspoint, stats):
+    """One hop of any height on the device, as a segment of one: the
+    endpoint hop, and the rows near the origin whose spacing differs (the
+    port of masa_tpu's ``_run_arb_hop``).  The strip kernel takes any
+    height, so masa_tpu's ladder of rung strips, dynamic tail and
+    row-sweep residue is not needed.  The same conditions as a chain's
+    hop, checked on the host first.  Returns (handed on, issued), or None
+    where the hop cannot run on the device."""
+    r = specials.next_below(cp.i, 1)
+    if r is None or r <= 0 or dev_cache.get(r) is None:
+        return None
+    if sw and goal_reachable(cp, r, params.match):
+        return None
+    W = _hop_window(cp, r, backend)
+    if cp.j < W + 1:
+        return None
+    return _run_segment([r], cp, W, seq0, params, specials, dev_cache, sw,
+                        rev_views, cps, on_crosspoint, stats)
+
+
 def reverse_march(
     seq0: np.ndarray,
     seq1: np.ndarray,
@@ -567,6 +702,7 @@ def reverse_march(
     device="cuda",
     dev_cache: DevRowCache | None = None,
     stats: MarchStats | None = None,
+    chain: bool | None = None,
 ) -> list[Crosspoint]:
     """The stage-2 loop: march crosspoints from `endpoint` back toward the
     origin, matching at stored special rows (virtual row 0 included).
@@ -579,21 +715,55 @@ def reverse_march(
     on a card (``_windowed_cut_ok``); the rest match on the host.
     ``stats`` counts them.  Returns crosspoints ordered from start to
     endpoint (ascending i).  row_init/col_init describe the matrix
-    borders, used for the final row-0 matching and origin fixups."""
+    borders, used for the final row-0 matching and origin fixups.
+
+    ``chain``: run the hops whose rows the cache holds on the device,
+    chained (``_run_hop_chain``, ``_run_arb_hop``); None means so on a
+    card where ``dev_cache`` is given and ``min_dist`` is 1.  A hop that
+    is not eligible or does not hit goes to the host path; nothing else
+    does: a failed launch or a set error flag raises."""
     n = len(seq1)
     sw_anywhere = alignment_start == AlignmentStart.ANYWHERE
+    if chain is None:
+        chain = (torch.device(device).type == "cuda"
+                 and dev_cache is not None and min_dist == 1)
+    elif chain and (dev_cache is None or min_dist != 1):
+        raise ValueError("a chained march needs the row cache and "
+                         "min_dist 1")
     cps: list[Crosspoint] = [endpoint]
     cp = endpoint
     rev_seqs = (np.ascontiguousarray(seq0[::-1]),
                 np.ascontiguousarray(seq1[::-1]))
+    rev_views = None
+    if backend != "numpy" or chain:
+        # the reversed views as flips of stage 1's forward ones on the
+        # device, found by every hop's aligner under the reversed arrays
+        for fwd, rev in zip((seq0, seq1), rev_seqs):
+            wf.dev_seq_seed_reversed(fwd, rev, device)
+    if chain:
+        rev_views = tuple(wf.dev_seq(x, device) for x in rev_seqs)
     row0_h = (border_cells(n + 1, row_init, params)[0]
               if row_init != InitType.CUSTOM else None)
+    host_hop = None  # the row a broken segment's failing hop starts at
 
     while True:
         if sw_anywhere and cp.score <= 0:
             break
         if cp.i == 0 or (cp.j == 0 and not sw_anywhere):
             break
+        if chain and cp.i != host_hop:
+            args = (seq0, params, cp, specials, dev_cache, sw_anywhere,
+                    rev_views, backend, cps, on_crosspoint, stats)
+            got = _run_hop_chain(*args)
+            if got is None:
+                got = _run_arb_hop(*args)
+            if got is not None:
+                done, issued = got
+                if done < issued:
+                    host_hop = cps[-1].i
+                if done:
+                    cp = cps[-1]
+                    continue
         dist = min_dist
         while True:
             # row-widen loop: a full-width miss at a stored row skips that

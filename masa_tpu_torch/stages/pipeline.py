@@ -161,16 +161,18 @@ def stage2_march(
     specials: core.SpecialRowStore,
     dev_cache: core.DevRowCache | None = None,
     stats: core.MarchStats | None = None,
+    chain: bool | None = None,
 ) -> list[Crosspoint]:
     """Stage 2: the reverse march over stage 1's rows (``dev_cache``:
-    the rows stage 1 kept on the device)."""
+    the rows stage 1 kept on the device; ``chain``: see
+    ``core.reverse_march``)."""
     row_init, col_init = _mode_inits(pcfg.alignment_start)
     return core.reverse_march(
         seq0, seq1, pcfg.params, endpoint, specials,
         row_init, col_init, pcfg.alignment_start,
         min_dist=pcfg.min_dist, backend=pcfg.backend,
         cfg=pcfg.kernel_cfg, device=pcfg.device, dev_cache=dev_cache,
-        stats=stats,
+        stats=stats, chain=chain,
     )
 
 

@@ -1,5 +1,6 @@
-"""The Hopper kernels (the strip kernel, the two batched strip kernels and
-the roofline bodies) against their plain PyTorch versions, on the card.
+"""The Hopper kernels (the strip kernel, the two batched strip kernels, the
+roofline bodies and the stage-2 hop's prologue and epilogue) against their
+plain PyTorch versions, on the card.
 
 These need a CUDA GPU and nvcc and skip elsewhere, and import nothing of
 masa_tpu.  The repo's conftest imports JAX, which a machine with only the
@@ -16,7 +17,7 @@ import torch
 
 from masa_tpu_torch.ops import batched_mm, kernels
 from masa_tpu_torch.ops import wavefront as wf
-from masa_tpu_torch.tools import batched_tune
+from masa_tpu_torch.tools import batched_tune, hop_tune
 from masa_tpu_torch.types import INF, InitType, ScoreParams
 
 pytestmark = pytest.mark.cuda
@@ -665,18 +666,105 @@ def test_sharded_align_on_the_card(cuda):
 
 
 def test_row_pull_copies_on_a_side_stream(cuda):
-    """A RowPull's copy to pinned host memory runs on its side stream and
-    lands as the row; ready() turns true once it has."""
+    """A RowPull's copies to pinned host memory run on its side stream and
+    land as the row: the packed bytes (start, ready, packed: the CPU's
+    packed form of the same row, escapes included) and the int32 row
+    (rows)."""
     from masa_tpu_torch.ops.strips import RowPull
 
     h = torch.arange(-5, 70000, dtype=torch.int32, device=cuda)
+    h[100:130] = NEG
     f = -h
     pull = RowPull(h, f, torch.cuda.Stream(cuda))
     assert not pull.ready()
-    got_h, got_f = pull.start().rows()
-    assert pull.ready() and pull._host.is_pinned()
+    pull.start()
+    got = pull.packed()
+    assert pull.ready() and pull._packed[0].packed.is_pinned()
+    want = RowPull(h.cpu(), f.cpu()).packed()
+    for g, w in zip(got, want):
+        for x, y in zip(g, w):
+            assert np.array_equal(x, y)
+    assert len(got[0][1]) >= 2  # the -INF run's ends are escapes
+    assert np.array_equal(pull.anchors(1000)[0], h[::1000].cpu().numpy())
+    got_h, got_f = pull.rows()
+    assert pull._host.is_pinned()
     assert np.array_equal(got_h, h.cpu().numpy())
     assert np.array_equal(got_f, f.cpu().numpy())
+
+
+def test_packing_on_the_card_matches_cpu(cuda):
+    """delta_pack_device and the packed pulls on the card give the CPU's
+    bytes, escapes and rows (odd lengths, one cell, -INF runs)."""
+    rng = np.random.default_rng(8)
+    for nj in (1, 2, 777, 1 << 20):
+        v = np.cumsum(rng.integers(-9, 10, nj)).astype(np.int32)
+        v[nj // 3:nj // 3 + 5] = NEG
+        cpu = torch.from_numpy(v)
+        assert torch.equal(wf.delta_pack_device(cpu.to(cuda), nj).cpu(),
+                           wf.delta_pack_device(cpu, nj))
+        for x, y in zip(wf.packed_row_host(wf.pull_row_delta_start(
+                cpu.to(cuda), nj, torch.cuda.Stream(cuda))),
+                        wf.packed_row_host(wf.pull_row_delta_start(cpu,
+                                                                   nj))):
+            assert np.array_equal(x, y)
+        assert np.array_equal(wf.pull_row_delta(cpu.to(cuda), nj), v)
+
+
+def test_hop_kernels_match_plain(cuda):
+    """hop_prep and hop_match against their plain versions: every type,
+    SW and NW, hits at k = 0 and beyond, no stop, an overshoot, ok = 0 on
+    entry, cj < W + 1, a reachable goal, random states."""
+    err, seen = hop_tune.check(cuda)
+    assert err == 0
+    assert set(seen) == {"hit at 0", "hit", "no stop", "overshoot", "ok 0",
+                         "cj < W + 1", "reachable", "random"}
+
+
+def test_hop_wrappers_reject_bad_inputs(cuda):
+    s1r = torch.zeros(100, dtype=torch.uint8, device=cuda)
+    st = torch.zeros(4, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        kernels.hop_prep_cuda(s1r, st, 100, 5, 3, 2)   # W >= n
+    with pytest.raises(ValueError):
+        kernels.hop_prep_cuda(s1r, st.long(), 10, 5, 3, 2)
+    cut = torch.zeros(100, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        kernels.hop_match_cuda(cut, cut, cut[:9], cut[:10], st, st.clone(),
+                               10, 5, match=1, gap_open=3, gap_ext=2,
+                               sw=False)
+
+
+def test_chained_march_on_the_card_matches_cpu(cuda):
+    """A march on the card chains its hops (chain=None is on there) and
+    gives the CPU host march's crosspoints; its hops copy no sequence
+    from the host."""
+    from masa_tpu_torch.stages import core, pipeline
+    from masa_tpu_torch.types import AlignmentStart
+
+    rng = np.random.default_rng(77)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    s0 = rng.choice(bases, 20000).astype(np.uint8)
+    s1 = s0.copy()
+    flip = rng.random(len(s1)) < 0.08
+    s1[flip] = rng.choice(bases, int(flip.sum()))
+    s1 = np.concatenate([rng.choice(bases, 9000).astype(np.uint8), s1])
+    start = AlignmentStart.SEQUENCE_1_AND_2
+    got = {}
+    for dev in ("cpu", "cuda"):
+        pcfg = pipeline.PipelineConfig(alignment_start=start,
+                                       flush_interval=1024, device=dev,
+                                       backend="kernel")
+        res, ep = pipeline.stage1_pass(s0, s1, pcfg)
+        stats = core.MarchStats()
+        before = dict(wf.dev_seq_counts)
+        got[dev] = [tuple(c) for c in pipeline.stage2_march(
+            s0, s1, pcfg, ep, res.specials, res.dev_cache, stats)]
+        if dev == "cuda":
+            assert stats.chained >= 3 and stats.segments >= 1, stats
+            assert wf.dev_seq_counts["uploads"] == before["uploads"]
+        else:
+            assert stats.segments == 0
+    assert got["cuda"] == got["cpu"]
 
 
 def test_goal_match_on_the_card_matches_cpu(cuda):

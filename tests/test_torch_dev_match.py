@@ -326,14 +326,19 @@ def tree(top):
     ids=["none-disk", "4bit-disk", "none-ram+disk", "none-disk-pruned"])
 def test_lazy_stage1_writes_the_eager_rows(pair3k, tmp_path, monkeypatch,
                                            codec, mixed, prune):
-    """(f) A lazy stage 1 through the runner writes the special-row files
-    byte for byte as the port's eager stage 1 and masa_tpu's (whose eager
-    rows are the format masa_tpu writes on the CPU; its lazy rows are its
-    device's packed form, which the port reads back to the same values).
-    With block pruning on, the port's rows hold -INF where its windows
-    (masa_tpu's rule without masa_tpu's power-of-two window buckets)
-    pruned more than masa_tpu's, so that case holds lazy against eager
-    alone."""
+    """(f) A lazy stage 1 through the runner writes the rows an eager one
+    writes: every row reads back through the area with the same values.
+    The files differ by design, as masa_tpu's do: eager rows are the
+    partition's codec, byte for byte masa_tpu's eager rows, and lazy rows
+    bound for disk are the device's packed form ("MSRQ"), byte for byte
+    masa_tpu's lazy rows.  The port's lazy placement is pinned row by
+    row.  Mixed, masa_tpu's placement of a lazy row depends on whether
+    the copy of the row before it has landed (an in-flight row charges
+    the disk budget), so there the files both packages wrote are held
+    byte for byte.  With block pruning on, the port's rows hold -INF
+    where its windows (masa_tpu's rule without masa_tpu's power-of-two
+    window buckets) pruned more than masa_tpu's, so that case holds lazy
+    against eager alone."""
     s0, s1 = pair3k
     # mixed: room for 3 rows in RAM and 3 on disk, so they alternate
     row = 8 * (len(s1) + 1) + 20
@@ -349,33 +354,51 @@ def test_lazy_stage1_writes_the_eager_rows(pair3k, tmp_path, monkeypatch,
     assert calls["lazy"] == 5
     assert len(lazy.runtime_dev_rows.cache) == 5
     eager, _ = jobs(tmp_path / "eager", **base)
-    monkeypatch.setattr(core, "lazy_rows_fit", lambda *a: False)
-    runner.stage1(eager, s0, s1, log=quiet)
+    with monkeypatch.context() as mp:
+        mp.setattr(core, "lazy_rows_fit", lambda *a: False)
+        runner.stage1(eager, s0, s1, log=quiet)
     assert calls["lazy"] == 5
+    mine = lazy.sra_area(1, 0).open_partition(0, 0)
+    ours = eager.sra_area(1, 0).open_partition(0, 0)
+    assert mine.rows() == ours.rows() and len(mine.rows()) == 5
+    for r in mine.rows():
+        for x, y in zip(mine.get(r), ours.get(r)):
+            np.testing.assert_array_equal(x, y)
     rows = {d: tree(os.path.join(d, "special_rows"))
             for d in (lazy.dir, eager.dir)}
-    assert rows[lazy.dir] == rows[eager.dir]
-    assert len([k for k in rows[lazy.dir] if "row." in k]) == (
+    assert len([k for k in rows[eager.dir] if "row." in k]) == (
         2 if mixed else 5)
+    assert all(raw[:4] == b"MSRQ" for k, raw in rows[lazy.dir].items()
+               if "row." in k)
+    # the port's lazy placement.  Mixed: row 512 goes to RAM (1/3 of each
+    # budget), 1024 to disk (RAM would be 2/3, disk 1/3); once written, a
+    # disk row charges its packed file (about an eighth of a row), so the
+    # disk stays the emptier budget and takes the three rows after it
+    on_disk = sorted(int(k.rsplit("row.", 1)[1][:10])
+                     for k in rows[lazy.dir] if "row." in k)
+    assert on_disk == ([1024, 1536, 2048, 2560] if mixed
+                       else [512, 1024, 1536, 2048, 2560])
     if prune:
         return
     monkeypatch.setenv("MASA_TPU_DEV_ROWS_MB", "0")  # masa_tpu eager
     jrunner.stage1(ref, s0, s1, log=quiet)
-    assert tree(os.path.join(ref.dir, "special_rows")) == rows[lazy.dir]
-    # masa_tpu's own lazy rows hold the same values (its disk rows in its
-    # device's packed form, placed by their smaller files)
+    assert tree(os.path.join(ref.dir, "special_rows")) == rows[eager.dir]
+    # masa_tpu's lazy rows: the same files
     _, jlazy = jobs(tmp_path / "jlazy", **base)
     monkeypatch.delenv("MASA_TPU_DEV_ROWS_MB")
     jrunner.stage1(jlazy, s0, s1, log=quiet)
-    mine = lazy.sra_area(1, 0).open_partition(0, 0)
+    jrows = tree(os.path.join(jlazy.dir, "special_rows"))
+    if mixed:
+        both = set(jrows) & set(rows[lazy.dir])
+        assert len([k for k in both if "row." in k]) >= 1
+        jrows = {k: jrows[k] for k in both}
+        rows[lazy.dir] = {k: rows[lazy.dir][k] for k in both}
+    assert jrows == rows[lazy.dir]
     theirs = jlazy.sra_area(1, 0).open_partition(0, 0)
     assert theirs.rows() == mine.rows()
     for r in theirs.rows():
         for x, y in zip(mine.get(r), theirs.get(r)):
             np.testing.assert_array_equal(x, y)
-    with open(os.path.join(theirs.dir, f"row.{min(theirs._disk):010d}.bin"),
-              "rb") as fh:
-        assert fh.read(4) == b"MSRQ"
 
 
 @pytest.fixture
