@@ -25,8 +25,10 @@ Phases (any failure raises and the run exits non-zero):
      and epilogue (csrc/hop.cu, ``tools/hop_tune.check``): every
      crosspoint type, SW and NW, hits at k = 0 and beyond, no stop, an
      overshoot, ok = 0 on entry, cj < W + 1, a reachable goal, random
-     states, at a small shape (W 4096, hb 512, a cut of 2^16) and at a
-     hop of the 1M pair (W 16384, hb 8192, a cut of 2^20); then timed at
+     states, at a small shape (W 4096, hb 512, a cut of 2^16) and at the
+     hops the main paths issue on the 1M pair (a cut of 2^20; the CLI's
+     W 16384, hb 8192, the bench's W 1024, hb 512, both read off the
+     code that picks them); then timed at
      the hop of the 1M pair beside their plain versions, outputs held
      equal there too; the device delta packing against its plain form
      (the same row on the CPU), and one row of 2^20 pulled to the host
@@ -116,11 +118,21 @@ Phases (any failure raises and the run exits non-zero):
      1 is slab 0's last column of round 0 (exact), and the kernel equals
      its plain version on the first 8192 rows of slab 1's first strip
      with that border.
+  10. (after phase 6) the port's bench, ``python -m masa_tpu_torch.bench``,
+     as a child process at full size: stage 1 of bench.py's random 1M pair
+     (best of 2, best score 19) and two full runs of the 1M homolog at
+     JobConfig's defaults, 1 GiB of RAM and 16 GiB of disk (a special row
+     every 512 rows; score 796634); its lines echoed, its JSON line
+     printed whole and checked (every key of bench.py's line, the card);
+     its launches count with the main path's.  Before it, what this
+     process holds and a probe of the temporary directory's files; beside
+     it, its CPU seconds and this process's.
 Each main-path run prints, per stage, the kernels' summed milliseconds
 (CUDA events around every launch) beside the stage's wall time.
 The kernels line counts each kernel's launches over every main-path run
-(phases 5, 7, 8 and 9, less the host-matched call of phase 5, which is a
-comparison; the fork and multihost workers report theirs) and
+(phases 5, 7, 8, 9 and 10, less the host-matched call of phase 5, which
+is a comparison; the fork and multihost workers and the bench report
+theirs) and
 gives each kernel's bound: the larger of its bytes over the card's memory rate and
 its operations over the card's int32 peak (SMs x 64 INT32 lanes x the SM
 clock read in this run).  A Gotoh cell counts the fewest INT32-lane
@@ -484,18 +496,41 @@ def fixed_main(dev):
     return launches, err, ms, plain_ms, cells, nbytes(*args, *got)
 
 
+def main_path_hops():
+    """The (W, hb) of the chained stage-2 hops that the main paths issue on
+    the 1M pair, from the code that picks them: hb the flush interval of
+    the CLI's runs (``--ram-size 0 --disk-size 1G``) and of the bench's
+    full run (``JobConfig``'s defaults), W the window of a hop of that
+    height whose column clears it (``stages/core._hop_window``)."""
+    from masa_tpu_torch.core.job import Job, JobConfig
+    from masa_tpu_torch.stages import core, pipeline
+    from masa_tpu_torch.tools.pairs import bench_pair
+    from masa_tpu_torch.types import Crosspoint
+
+    m, n = map(len, bench_pair())
+    out = set()
+    with tempfile.TemporaryDirectory() as tmp:
+        for limits in ({"ram_limit": 0, "disk_limit": 1 << 30}, {}):
+            job = Job(JobConfig(work_dir=tmp, **limits), device="cpu")
+            hb = job.calculate_flush_intervals(
+                m, n, align_to=pipeline.FLUSH_GRAIN)[0]
+            out.add((core._hop_window(Crosspoint(m, n, 0), m - hb, "auto"),
+                     hb))
+    return sorted(out)
+
+
 def hop_phase(dev):
     """Phase 2j: the stage-2 hop's prologue and epilogue against their
     plain versions on the card (``tools/hop_tune.check``: every type, SW
     and NW, hits at k = 0 and beyond, no stop, an overshoot, ok = 0 on
     entry, cj < W + 1, a reachable goal, random states) at a small shape
-    and at the shape the main path gives them (a hop of the 1M pair), the
-    device delta packing against its plain form (the same rows on the
+    and at each shape the main paths give them (``main_path_hops``: the
+    CLI's hops of the 1M pair and the bench's), the device delta packing against its plain form (the same rows on the
     CPU: an odd length, one cell, -INF runs, a row of 2^20), then both
     hop kernels timed at the 1M pair's hop beside their plain versions
     (``hop_tune.timed``, which holds their outputs equal there), and one
     row of 2^20 pulled to the host as int32 (the port's eager pull) and
-    packed (masa_tpu's).  Returns (max |diff| at the main path's shape,
+    packed (masa_tpu's).  Returns (max |diff| over the main paths' shapes,
     {name: (ms, plain ms, bytes moved)})."""
     import numpy as np
     import torch
@@ -504,7 +539,13 @@ def hop_phase(dev):
     from masa_tpu_torch.tools import hop_tune
 
     hop_tune.check(dev)
-    err, seen = hop_tune.check(dev, 1 << 20, 16384, 8192)
+    shapes = main_path_hops()
+    err, seen = 0, {}
+    for W, hb in shapes:
+        e, got = hop_tune.check(dev, M_1M, W, hb)
+        err = max(err, e)
+        for k, v in got.items():
+            seen[k] = seen.get(k, 0) + v
     rng = np.random.default_rng(8)
     side = torch.cuda.Stream(dev)
     for nj in (1, 777, 1 << 20):
@@ -533,8 +574,8 @@ def hop_phase(dev):
                                 (time.perf_counter() - t0) * 1e3)
     t = hop_tune.timed(dev)
     log(f"hop kernels: equal to their plain versions in every case "
-        f"({json.dumps(seen)} at a cut of 2^20, W 16384, hb 8192, and at "
-        f"the small shape); the device packing equal to the CPU's; a row "
+        f"({json.dumps(seen)} at a cut of 2^20, (W, hb) "
+        f"{json.dumps(shapes)}, and at the small shape); the device packing equal to the CPU's; a row "
         f"of 2^20 pulled to the host in {pull_ms['int32']:.3f} ms as int32, "
         f"{pull_ms['packed']:.3f} ms packed (least of 5, host clock); at "
         f"{json.dumps(t['shape'])}: "
@@ -1194,9 +1235,9 @@ def kernel_ms_text(ms):
 
 
 class StageTap(io.StringIO):
-    """The CLI's stdout: at each ``stageN: ... in X.XXs`` line (printed
-    when the stage ends) the kernels' milliseconds since the line before are read
-    off the launch events."""
+    """The CLI's stdout: at each stage's completion line
+    (``bench.stage_done``) the kernels' milliseconds since the line before
+    are read off the launch events."""
 
     def __init__(self):
         from masa_tpu_torch.ops import wavefront as wf
@@ -1207,17 +1248,18 @@ class StageTap(io.StringIO):
         self._seq = dict(wf.dev_seq_counts)
 
     def write(self, text):
+        from masa_tpu_torch.bench import stage_done
         from masa_tpu_torch.ops import kernels
         from masa_tpu_torch.ops import wavefront as wf
 
-        m = re.match(r"(stage\d): .* in [\d.]+s", text)
-        if m:
+        done = stage_done(text)
+        if done:
             got = kernels.drain_events()
-            mine = self.kernel_ms.setdefault(m.group(1), {})
+            mine = self.kernel_ms.setdefault(done[0], {})
             for k, v in got.items():
                 mine[k] = mine.get(k, 0.0) + v
             now = dict(wf.dev_seq_counts)
-            moves = self.seq_moves.setdefault(m.group(1), dict.fromkeys(
+            moves = self.seq_moves.setdefault(done[0], dict.fromkeys(
                 now, 0))
             for k, v in now.items():
                 moves[k] += v - self._seq[k]
@@ -1265,10 +1307,12 @@ def run_cli(argv, quiet=("stage1: ... flushed",)):
 
 
 def stage_seconds(out):
-    """The CLI's per-stage seconds, from its ``stageN: ... in X.XXs``
-    lines."""
-    return {f"stage{k}": float(v) for k, v in re.findall(
-        r"^stage(\d): .* in ([\d.]+)s", out, re.M)}
+    """The CLI's per-stage seconds, as its stages' completion lines state
+    them (``bench.stage_done``)."""
+    from masa_tpu_torch.bench import stage_done
+
+    done = [stage_done(line) for line in out.splitlines()]
+    return {d[0]: d[1] for d in done if d and d[1] is not None}
 
 
 def tree_digests(top):
@@ -1747,6 +1791,101 @@ def module_entry():
     log(f"module entry --test: exit 0 in {time.time() - t0:.1f} s")
 
 
+SCORE_RANDOM_1M = 19  # the DP's best on bench.py's random 1M pair
+PROBE_ROWS = 512  # the rows of the disk probe before the bench's child
+
+
+def bench_py_keys():
+    """Every key of the line the repository's ``bench.py`` prints: the
+    string keys of the dictionaries inside its ``json.dumps`` call."""
+    import ast
+
+    with open(os.path.join(REPO, "bench.py")) as fh:
+        tree = ast.parse(fh.read())
+    keys = set()
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Call) and isinstance(node.func,
+                                                      ast.Attribute)
+                and node.func.attr == "dumps"):
+            for d in ast.walk(node):
+                if isinstance(d, ast.Dict):
+                    keys |= {k.value for k in d.keys
+                             if isinstance(k, ast.Constant)}
+    return keys
+
+
+def vm_rss_bytes():
+    with open("/proc/self/status") as fh:
+        return 1024 * int(re.search(r"^VmRSS:\s+(\d+) kB", fh.read(),
+                                    re.M)[1])
+
+
+def bench_phase(card):
+    """Phase 10: ``python -m masa_tpu_torch.bench`` as a user runs it, in a
+    child process at full size (``tools/bench_spread.run_child``): stage 1
+    of bench.py's random 1M pair, the full run of the 1M homolog at
+    JobConfig's defaults (a special row every 512 rows), twice each.
+    Before it, what this process holds (host memory, the card's memory
+    reserved and allocated, pinned host memory) and a probe of the
+    temporary directory's files (``bench_spread.disk_probe``) are printed;
+    beside it, its CPU seconds and this process's.  Its lines are echoed,
+    its last line printed whole; it must carry every key of bench.py's
+    line, best score 19, full score 796634 and this card.  Returns its
+    launches by kernel (counted in the child, where the kernels launch)."""
+    import torch
+
+    from masa_tpu_torch.tools import bench_spread
+
+    torch.cuda.empty_cache()  # the child's row cache takes half the free
+    pinned = getattr(torch.cuda, "host_memory_stats", dict)().get(
+        "reserved_bytes.current", "not read")
+    probe = bench_spread.disk_probe(PROBE_ROWS)
+    log(f"before the bench: this process holds {vm_rss_bytes()} bytes of "
+        f"host memory ({pinned} pinned), "
+        f"{torch.cuda.memory_reserved()} bytes reserved on the card "
+        f"({torch.cuda.memory_allocated()} allocated); the temporary "
+        f"directory's disk probe {json.dumps(probe)}")
+    r = bench_spread.run_child(timeout=900)
+    lines = r["lines"]
+    for line in lines[:-1]:
+        log(f"  bench> {line}")
+    if r["rc"] != 0 or not lines:
+        raise AssertionError(f"python -m masa_tpu_torch.bench exited "
+                             f"{r['rc']}: {r['stderr']}")
+    log(f"bench line: {lines[-1]}")
+    got = bench_checked(lines[-1], torch.cuda.get_device_name(0), card)
+    d = got["detail"]
+    log(f"bench: exit 0 in {r['wall_s']:.1f} s, {got['value']} GCUPS "
+        f"stage 1, full run {d['full_alignment_s']} s (cold "
+        f"{d['full_alignment_cold_s']} s); its CPU seconds (user, system) "
+        f"{json.dumps(r['child_cpu_s'])}, this process's meanwhile "
+        f"{json.dumps(r['parent_cpu_s'])}, load average before "
+        f"{json.dumps(r['loadavg'])}; launches " + json.dumps(d["launches"]))
+    return d["launches"]
+
+
+def bench_checked(line, kind, card):
+    """The bench's last line as a dict, raising unless it carries every
+    key of bench.py's line, names card ``kind`` and ``card`` (nvidia-smi's
+    line), scores 19 on the random pair and 796634 in full over all six
+    stages at 2^20 x 2^20, and launched every kernel of COUNTED."""
+    got = json.loads(line)
+    d = got["detail"]
+    missing = bench_py_keys() - set(got) - set(d)
+    if missing:
+        raise AssertionError(f"the bench's line lacks {sorted(missing)}")
+    want = {"best_score": SCORE_RANDOM_1M, "full_score": SCORE_1M,
+            "m": M_1M, "n": M_1M, "device": kind, "card": card}
+    wrong = {k: (d[k], v) for k, v in want.items() if d[k] != v}
+    if wrong or set(d["full_stage_s"]) != {f"stage{k}" for k in range(1, 7)}:
+        raise AssertionError(f"the bench's line is wrong: {wrong} "
+                             f"{d['full_stage_s']}")
+    for k in COUNTED:
+        if d["launches"][k] <= 0:
+            raise AssertionError(f"the bench launched no {k} kernel")
+    return got
+
+
 def roofline_phase(dev):
     """Phase 7: the roofline tool's measurement; its filling launch (the
     k1 body on SMs x the blocks that fit an SM) against the plain version
@@ -1933,6 +2072,8 @@ def main() -> int:
             launches[k] += m.get(k, 0)
     kernels.event_log = None
     module_entry()
+    for k, v in bench_phase(card).items():
+        launches[k] += v
     launches["batched_strip_fixed"] = n_fixed
     launches["roofline"], roof, stage1_ms, (err_fill, *filling) = \
         roofline_phase(dev)

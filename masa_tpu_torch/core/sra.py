@@ -419,6 +419,14 @@ class SpecialRowsPartition:
     def __len__(self):
         return len(self.rows())
 
+    def usage(self) -> dict:
+        """The rows in RAM and on disk and the bytes each store charges:
+        a RAM row its int32 H and F, a disk row its file (a row whose
+        copy is still in flight counts on disk at its int32 bytes)."""
+        return {"ram_rows": len(self._ram), "ram_bytes": self._ram_bytes,
+                "disk_rows": len(self._disk) + len(self._pending),
+                "disk_bytes": self._disk_bytes + self._pending_bytes}
+
     # --- resume ------------------------------------------------------
 
     def last_row(self) -> int | None:

@@ -189,12 +189,14 @@ def reduce_partitions_batched(
     max_partition: int = 16,
     device="cuda",
     on_launches=None,
+    log=None,
 ) -> list[Crosspoint]:
     """Split every adjacent pair until max(height, width) <= max_partition,
     one batched launch per direction per level (per ``CELL_CAP`` bus cells
     of it).  ``on_launches(level, el_f, el_r, width)``, if given, sees the
     element tables of each forward and reverse launch pair before it runs
-    (a measurement's tap)."""
+    (a measurement's tap).  ``log``, if given, gets masa_tpu's line after
+    each level: ``stage4[batched]: level L: N pairs``."""
     seq0 = np.asarray(seq0, np.uint8)
     seq1 = np.asarray(seq1, np.uint8)
     go = params.gap_open
@@ -237,6 +239,8 @@ def reduce_partitions_batched(
                                 c0.score + int(scrs[r]), t)
                 next_work.append((c0, cm))
                 next_work.append((cm, c1))
+        if log:
+            log(f"stage4[batched]: level {level}: {len(pending)} pairs")
         work = next_work
 
     # reassemble in path order: the c1 of every pair, sorted by position

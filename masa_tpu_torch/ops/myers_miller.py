@@ -159,11 +159,13 @@ def stage4_reduce(seq0: np.ndarray, seq1: np.ndarray,
                   cps: list[Crosspoint], params: ScoreParams,
                   max_partition: int = 16,
                   strategy: SplitStrategy = SplitStrategy.OPTIMIZED,
+                  log=None,
                   stage5_max_cells: int | None = None,
                   device="cuda") -> list[Crosspoint]:
     """Split every adjacent crosspoint pair until max(height, width) <=
     max_partition; the batched engine stops at isqrt(stage5_max_cells)
-    when that is larger (stage 5's DP takes any partition size)."""
+    when that is larger (stage 5's DP takes any partition size) and
+    hands ``log`` a line a level."""
     if not max_partition or len(cps) < 2:
         return cps
     engine = stage4_engine(device, strategy)
@@ -172,7 +174,7 @@ def stage4_reduce(seq0: np.ndarray, seq1: np.ndarray,
         if stage5_max_cells:
             mps = max(mps, math.isqrt(stage5_max_cells))
         return batched_mm.reduce_partitions_batched(
-            seq0, seq1, cps, params, mps, device=device)
+            seq0, seq1, cps, params, mps, device=device, log=log)
     if engine == "native":
         # the OPTIMIZED ladder, bit-exact with masa_tpu's
         return bindings.reduce_partitions(seq0, seq1, cps, params,

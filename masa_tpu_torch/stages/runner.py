@@ -253,6 +253,9 @@ def stage1(job: Job, seq0: np.ndarray, seq1: np.ndarray,
     with job.stats_file(STAGE_1, 0) as fh:
         timer.print_statistics(fh, cells=res.cells)
         fh.write(f"  pruned_cells: {res.pruned_cells}\n")
+        fh.write(f"  flush_interval: {ivs[0]}\n")
+        for k, v in part.usage().items():
+            fh.write(f"  {k}: {v}\n")
         if job.runtime_dev_rows is not None:
             cache = job.runtime_dev_rows.cache
             fh.write(f"  lazy_rows: {int(lazy_rows)}\n"
@@ -419,7 +422,7 @@ def stage4(job: Job, seq0: np.ndarray, seq1: np.ndarray, aln_id: int = 0,
     mps = job.cfg.stage4_max_partition
     if mps:
         cps = mm.stage4_reduce(
-            seq0, seq1, cps, job.cfg.params, mps, strategy,
+            seq0, seq1, cps, job.cfg.params, mps, strategy, log=log,
             stage5_max_cells=job.cfg.stage5_max_cells, device=job.device)
     out_cpf.crosspoints = cps
     out_cpf.save()

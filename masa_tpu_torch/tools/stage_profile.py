@@ -3,12 +3,17 @@
     python -m masa_tpu_torch.tools.stage_profile [--top 18] [--rows N]
                                                  [--device cuda]
 
-Runs four parts under cProfile, each timed on the host clock up to a
+Runs six parts under cProfile, each timed on the host clock up to a
 device sync: align_pair's stage 1 (``pipeline.stage1_pass``: lazy rows and
 the row cache) and its stage 2 from the cache (``pipeline.stage2_march``),
 then the CLI in-process with every special row on disk: ``--stage-1`` (the
 rows written as their copies land) and the call resuming it (stage 2 from
-cut windows read off the disk rows).  The pair is ``tools/pairs``' 1M
+cut windows read off the disk rows); then ``runner.stage1`` and
+``runner.stage2`` of one ``Job`` at ``JobConfig``'s defaults, the path of
+the CLI with no resource flags and of ``python -m masa_tpu_torch.bench``'s
+full run (a special row every 512 rows of the 1M pair, 1 GiB of them in
+RAM, the rest on disk, all kept on the device for stage 2).  The pair is
+``tools/pairs``' 1M
 pair (its first N bases of each sequence with ``--rows``); the kernels
 are built before the first part.  Prints each part's seconds and the
 functions with the most own time, then one JSON line of the seconds,
@@ -24,7 +29,6 @@ import io
 import json
 import os
 import pstats
-import subprocess
 import tempfile
 import time
 
@@ -58,7 +62,8 @@ def main(argv=None) -> int:
     import torch
 
     from masa_tpu_torch import cli
-    from masa_tpu_torch.stages import core, pipeline
+    from masa_tpu_torch.core.job import Job, JobConfig
+    from masa_tpu_torch.stages import core, pipeline, runner
     from masa_tpu_torch.tools.pairs import bench_pair
 
     cuda = args.device == "cuda"
@@ -95,12 +100,22 @@ def main(argv=None) -> int:
                                       argv + extra)
             if rc != 0:
                 raise SystemExit(f"the CLI exited {rc}")
+        job = Job(JobConfig(work_dir=os.path.join(tmp, "defaults")),
+                  device=args.device)
+        lines = []
+        _, secs["runner stage 1, JobConfig defaults"] = profiled(
+            "runner.stage1 at JobConfig's defaults", args.top, sync,
+            runner.stage1, job, s0, s1, None, lines.append)
+        _, secs["runner stage 2, JobConfig defaults"] = profiled(
+            "runner.stage2 from the rows kept on the device", args.top,
+            sync, runner.stage2, job, s0, s1, 0, None, lines.append)
+        print("\n".join(x for x in lines
+                        if not x.startswith("stage1: ... flushed")))
     card = None
     if cuda:
-        card = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            check=True).stdout.strip().splitlines()[0]
+        from masa_tpu_torch.tools import roofline
+
+        card = roofline.card()
     print(json.dumps({"seconds": {k: round(v, 3) for k, v in secs.items()},
                       "align_pair stage 2": stats.text(), "card": card}))
     return 0
