@@ -21,18 +21,24 @@ Phases (any failure raises and the run exits non-zero):
      kernel: CUSTOM borders, odd widths, 1 to 3000 elements, tall
      elements that chain sub-strips; then timed at 8192 x 64 x 128.  Every
      roofline body (the TPU tool's five and the three with the kernels'
-     own cell) at 0, 1 and 61 iterations.  The stage-2 hop's prologue
-     and epilogue (csrc/hop.cu, ``tools/hop_tune.check``): every
-     crosspoint type, SW and NW, hits at k = 0 and beyond, no stop, an
-     overshoot, ok = 0 on entry, cj < W + 1, a reachable goal, random
-     states, at a small shape (W 4096, hb 512, a cut of 2^16) and at the
-     hops the main paths issue on the 1M pair (a cut of 2^20; the CLI's
-     W 16384, hb 8192, the bench's W 1024, hb 512, both read off the
-     code that picks them); then timed at
-     the hop of the 1M pair beside their plain versions, outputs held
-     equal there too; the device delta packing against its plain form
-     (the same row on the CPU), and one row of 2^20 pulled to the host
-     as int32 and packed, timed;
+     own cell) at 0, 1 and 61 iterations.  The stage-2 hop
+     (csrc/hop.cu): the one-launch hop kernel against wavefront.hop_plain
+     (``tools/hop_tune.check_fused``: its state with the last row asked
+     for and without, and the whole last row) and the three-launch
+     route's prologue and epilogue against theirs
+     (``tools/hop_tune.check``), in every case: every crosspoint type, SW
+     and NW, hits at k = 0 and beyond, no stop, an overshoot, ok = 0 on
+     entry, cj < W + 1, a reachable goal, random states, at the hops the
+     main paths issue on the 1M pair (a cut of 2^20; the CLI's W 16384,
+     hb 8192, the bench's W 1024, hb 512, both read off the code that
+     picks them) and, for the one launch, at a hop past one CTA (W 2048,
+     hb 1000); then both forms timed at both main-path hops
+     (``hop_tune.timed``: the three launches back to back, each alone
+     and whole, against the one launch, its first stop planted at k = hb
+     and swept to the end; a segment's in-path events and host issue
+     time), outputs held equal to the plain versions'; the device delta
+     packing against its plain form (the same row on the CPU), and one
+     row of 2^20 pulled to the host as int32 and packed, timed;
   3. the golden real pairs through masa_tpu_torch.align(device="cuda"):
      real1 must score 11367 ending at (16384, 15805), real2 32466;
   4. the bench.py 1M x 1M homologous pair through the six pipeline stages
@@ -52,7 +58,9 @@ Phases (any failure raises and the run exits non-zero):
   5. the CLI on the same pair, written as FASTA files, every special row
      on disk: one full call (stage 2 from the rows stage 1 kept on the
      card: its hops matched there must be more than 0, its chained hops
-     too, and its stage 2 must copy no sequence from the host; the cache's
+     too, each issued hop one launch of the hop kernel and none of the
+     three-launch route's, and its stage 2 must copy no sequence from the
+     host; the cache's
      rows, bytes and budget, the peak device memory, the chained hops and
      segments (one verdict pull each) are printed), then
      `--stage-1` (lazy rows, written packed; block pruning on, the CLI's
@@ -67,7 +75,12 @@ Phases (any failure raises and the run exits non-zero):
      resuming the second with the window reads off (the host match); the
      three full runs score 796634, stage 5 verified, with the same
      crosspoint and alignment files; strip launches in the stage-1 calls
-     and batched launches in the full ones; per-stage times;
+     and batched launches in the full ones; per-stage times; then a full
+     call with sparse special rows (``--ram-size 0 --disk-size 64M``: a
+     row every 131072, taller than a cluster of hop CTAs holds), whose
+     chained hops must each take the three launches (hop_prep and
+     hop_match launches equal to the hops issued, no hop launch), score
+     796634;
      then the batched kernel at that run's own shapes: every launch of
      stage 4, forward and reverse, level by level, rebuilt from its
      stage-3 crosspoints, each timed against its plain version and its
@@ -123,8 +136,10 @@ Phases (any failure raises and the run exits non-zero):
      (best of 2, best score 19) and two full runs of the 1M homolog at
      JobConfig's defaults, 1 GiB of RAM and 16 GiB of disk (a special row
      every 512 rows; score 796634); its lines echoed, its JSON line
-     printed whole and checked (every key of bench.py's line, the card);
-     its launches count with the main path's.  Before it, what this
+     printed whole and checked (every key of bench.py's line, the card;
+     its stage 2's launches of the hop kernel equal to the hops it issued,
+     none of the three-launch route's); its launches count with the main
+     path's.  Before it, what this
      process holds and a probe of the temporary directory's files; beside
      it, its CPU seconds and this process's.
 Each main-path run prints, per stage, the kernels' summed milliseconds
@@ -177,14 +192,19 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces, or the code)
                             "masa_tpu/ops/wavefront.py:1289"),  # ..._pallas
     "roofline": ("masa_tpu_torch/csrc/roofline.cu",
                  "tools/roofline.py:86"),  # bench_kernel.make_call
-    # no Pallas counterpart: masa_tpu computes both in XLA
+    # no Pallas counterpart: masa_tpu runs a hop as one XLA program
+    "hop": ("masa_tpu_torch/csrc/hop.cu",
+            "masa_tpu/ops/wavefront.py:1216"),  # hop_step_device
+    # the prologue and epilogue of a hop taller than a cluster holds
     "hop_prep": ("masa_tpu_torch/csrc/hop.cu",
                  "masa_tpu/ops/wavefront.py:1216"),  # hop_step_device
     "hop_match": ("masa_tpu_torch/csrc/hop.cu",
                   "masa_tpu/ops/wavefront.py:1171"),  # goal_match_device
 }
 # the wrappers whose launches the main-path runs count
-COUNTED = ("strip", "batched_strip", "hop_prep", "hop_match")
+COUNTED = ("strip", "batched_strip", "hop", "hop_prep", "hop_match")
+# the route of each: the one-launch hop, or the three launches
+THREE = ("hop_prep", "hop_match")
 M_1M = 1 << 20
 SCORE_1M = 796634  # masa_tpu's full six-stage score on the 1M pair
 NEG = -999999999
@@ -496,6 +516,11 @@ def fixed_main(dev):
     return launches, err, ms, plain_ms, cells, nbytes(*args, *got)
 
 
+# (W, hb) of a hop past one CTA of the hop kernel (a cluster of two, the
+# second partial)
+PAST_CTA = (2048, 1000)
+
+
 def main_path_hops():
     """The (W, hb) of the chained stage-2 hops that the main paths issue on
     the 1M pair, from the code that picks them: hb the flush interval of
@@ -520,18 +545,22 @@ def main_path_hops():
 
 
 def hop_phase(dev):
-    """Phase 2j: the stage-2 hop's prologue and epilogue against their
-    plain versions on the card (``tools/hop_tune.check``: every type, SW
-    and NW, hits at k = 0 and beyond, no stop, an overshoot, ok = 0 on
-    entry, cj < W + 1, a reachable goal, random states) at a small shape
-    and at each shape the main paths give them (``main_path_hops``: the
-    CLI's hops of the 1M pair and the bench's), the device delta packing against its plain form (the same rows on the
-    CPU: an odd length, one cell, -INF runs, a row of 2^20), then both
-    hop kernels timed at the 1M pair's hop beside their plain versions
-    (``hop_tune.timed``, which holds their outputs equal there), and one
-    row of 2^20 pulled to the host as int32 (the port's eager pull) and
-    packed (masa_tpu's).  Returns (max |diff| over the main paths' shapes,
-    {name: (ms, plain ms, bytes moved)})."""
+    """Phase 2j: the stage-2 hop on the card.  The one-launch hop kernel
+    against ``wavefront.hop_plain`` (``tools/hop_tune.check_fused``) and
+    the three-launch route's prologue and epilogue against their plain
+    versions (``tools/hop_tune.check``), every case (every type, SW and
+    NW, hits at k = 0 and beyond, no stop, an overshoot, ok = 0 on entry,
+    cj < W + 1, a reachable goal, random states) at each shape the main
+    paths give them (``main_path_hops``: the CLI's hops of the 1M pair and
+    the bench's) and, for the one launch, at a hop past one CTA; the
+    device delta packing against its plain form (the same rows on the
+    CPU: an odd length, one cell, -INF runs, a row of 2^20); both forms
+    timed at both main-path hops (``hop_tune.timed``, which holds their
+    outputs equal to the plain versions' there); one row of 2^20 pulled
+    to the host as int32 (the port's eager pull) and packed (masa_tpu's).
+    Returns (max |diff| of the three-launch kernels, of the hop kernel,
+    {name: the timed figures at the CLI's hop, the tallest}, {shape:
+    hop_tune.timed})."""
     import numpy as np
     import torch
 
@@ -540,12 +569,17 @@ def hop_phase(dev):
 
     hop_tune.check(dev)
     shapes = main_path_hops()
-    err, seen = 0, {}
+    err, err_hop, seen, seen_hop = 0, 0, {}, {}
     for W, hb in shapes:
         e, got = hop_tune.check(dev, M_1M, W, hb)
         err = max(err, e)
         for k, v in got.items():
             seen[k] = seen.get(k, 0) + v
+    for W, hb in shapes + [PAST_CTA]:
+        e, got = hop_tune.check_fused(dev, M_1M, W, hb)
+        err_hop = max(err_hop, e)
+        for k, v in got.items():
+            seen_hop[k] = seen_hop.get(k, 0) + v
     rng = np.random.default_rng(8)
     side = torch.cuda.Stream(dev)
     for nj in (1, 777, 1 << 20):
@@ -572,18 +606,33 @@ def hop_phase(dev):
             fn()
             pull_ms[name] = min(pull_ms[name],
                                 (time.perf_counter() - t0) * 1e3)
-    t = hop_tune.timed(dev)
-    log(f"hop kernels: equal to their plain versions in every case "
-        f"({json.dumps(seen)} at a cut of 2^20, (W, hb) "
-        f"{json.dumps(shapes)}, and at the small shape); the device packing equal to the CPU's; a row "
+    timed = {f"{hb}x{W}": hop_tune.timed(dev, M_1M, W, hb)
+             for W, hb in shapes}
+    log(f"hop kernels: the one launch equal to hop_plain in every case "
+        f"({json.dumps(seen_hop)} at a cut of 2^20, (W, hb) "
+        f"{json.dumps(shapes + [PAST_CTA])}), the three-launch route's "
+        f"prologue and epilogue equal to theirs ({json.dumps(seen)}, and at "
+        f"the small shape); the device packing equal to the CPU's; a row "
         f"of 2^20 pulled to the host in {pull_ms['int32']:.3f} ms as int32, "
-        f"{pull_ms['packed']:.3f} ms packed (least of 5, host clock); at "
-        f"{json.dumps(t['shape'])}: "
-        + "; ".join(f"{k} {t[k]['ms']:.4f} ms (plain {t[k]['plain_ms']:.3f}"
-                    f" ms, {t[k]['bytes']} bytes)"
-                    for k in ("hop_prep", "hop_match")))
-    return err, {k: (t[k]["ms"], t[k]["plain_ms"], t[k]["bytes"])
-                 for k in ("hop_prep", "hop_match")}
+        f"{pull_ms['packed']:.3f} ms packed (least of 5, host clock)")
+    for shape, t in timed.items():
+        log(f"hop {shape} ({json.dumps(t['shape'])}, one launch as "
+            f"{json.dumps(t['geometry'])}): ms a launch back to back "
+            + json.dumps({k: round(v, 5) for k, v in t["ms"].items()})
+            + "; plain ms " + json.dumps({k: round(v, 3) for k, v in
+                                          t["plain_ms"].items()})
+            + "; in a segment, events ms a hop "
+            + json.dumps({f: {k: round(v, 5) for k, v in d.items()}
+                          for f, d in t["in_path"].items()})
+            + ", host issue ms a hop "
+            + json.dumps({k: round(v, 5) for k, v in t["issue_ms"].items()}))
+    W, hb = max(shapes, key=lambda s: s[1])  # the CLI's, the tallest
+    cli = timed[f"{hb}x{W}"]
+    figures = {k: (cli["ms"][k], cli["plain_ms"][k], cli["bytes"][k])
+               for k in THREE}
+    figures["hop"] = (cli["ms"]["hop"], cli["plain_ms"]["hop"],
+                      cli["cells"]["hop"], cli["bytes"]["hop"])
+    return err, err_hop, figures, timed
 
 
 def roofline_matrix(dev):
@@ -1368,7 +1417,10 @@ def cli_run(fa, fb, tmp, cells):
     full run resuming the first (no cache: stage 2 reads cut windows off
     the disk rows) and the full run resuming the second with the window
     reads off (the host match, a whole row read a hop).  The three full
-    runs write the same crosspoints and alignment.  Returns the strip
+    runs write the same crosspoints and alignment.  Then a full call with
+    sparse special rows (a row every 131072: hops taller than a cluster
+    of hop CTAs) must take the three launches for each hop.  Returns the
+    strip
     launches of the first two calls and the batched launches of the
     first and the resumed one, its stage-3 crosspoints (the stage-2 bands:
     stage 3 passes them through on the card), the seconds per stage and
@@ -1401,6 +1453,7 @@ def cli_run(fa, fb, tmp, cells):
     if st2["chained"] <= 0 or moves.get("stage2", {}).get("uploads", 1):
         raise AssertionError("the single CLI call's stage 2 chained no hop, "
                              "or copied a sequence to the card")
+    one_launch(launches_1, st2, "the single CLI call")
     work = os.path.join(tmp, "w")
     argv = [fa, fb, "--work-dir", work] + flags
     first, secs0, launches0 = run_cli(argv + ["--stage-1"])
@@ -1469,6 +1522,25 @@ def cli_run(fa, fb, tmp, cells):
         + f"; pruned_cells {pruned} ({100 * pruned / cells:.2f}% of m n); "
         f"strip launches {launches0['strip']} (--stage-1 call), batched "
         f"launches {launches1['batched_strip']} (resumed call)")
+    # sparse special rows: hops taller than a cluster, three launches each
+    sparse = os.path.join(tmp, "sparse")
+    few, secs_s, launches_s = run_cli([fa, fb, "--work-dir", sparse,
+                                       "--ram-size", "0", "--disk-size",
+                                       "64M"])
+    st1s, st2s = stats_of(sparse, 1), stats_of(sparse, 2)
+    log(f"CLI 1M pair, sparse special rows (every "
+        f"{st1s['flush_interval']} rows): {secs_s:.2f} s; stage 2 "
+        + json.dumps({k: st2s[k] for k in ("chained", "segments",
+                                           "issued")})
+        + "; launches " + json.dumps(launches_s) + "; per stage "
+        + json.dumps(stage_seconds(few)))
+    if f"alignment score: {SCORE_1M}  (matches=" not in few:
+        raise AssertionError("the sparse-row call did not score "
+                             f"{SCORE_1M}")
+    if st2s["issued"] <= 0 or launches_s["hop"] or any(
+            launches_s[k] != st2s["issued"] for k in THREE):
+        raise AssertionError(f"the sparse-row call's hops did not take the "
+                             f"three launches each: {st2s}, {launches_s}")
     need_launches("the single CLI call", launches_1)
     if launches0["strip"] <= 0:
         raise AssertionError("the CLI's stage 1 launched no strip kernel")
@@ -1476,7 +1548,7 @@ def cli_run(fa, fb, tmp, cells):
         raise AssertionError("the CLI's traceback launched no batched "
                              "strip kernel")
     return ({k: launches_1[k] + launches0[k] + launches_r[k]
-             + launches1[k] for k in COUNTED}, cps3,
+             + launches1[k] + launches_s[k] for k in COUNTED}, cps3,
             stage_seconds(first + second), pruned)
 
 
@@ -1502,6 +1574,16 @@ def same_rows(work, other):
                                          f"other values")
             n += 1
     return n
+
+
+def one_launch(launches, stage2, what):
+    """Every hop a run's stage 2 issued went through the hop kernel, one
+    launch each, and none through the three-launch route (``launches``:
+    the run's, by COUNTED wrapper; ``stage2``: its statistics_02.00)."""
+    if stage2["issued"] <= 0 or launches["hop"] != stage2["issued"] or any(
+            launches[k] for k in THREE):
+        raise AssertionError(f"{what}: the hops issued ({stage2['issued']}) "
+                             f"were not one hop launch each: {launches}")
 
 
 def need_launches(what, launches, names=("strip", "batched_strip")):
@@ -1868,7 +1950,9 @@ def bench_checked(line, kind, card):
     """The bench's last line as a dict, raising unless it carries every
     key of bench.py's line, names card ``kind`` and ``card`` (nvidia-smi's
     line), scores 19 on the random pair and 796634 in full over all six
-    stages at 2^20 x 2^20, and launched every kernel of COUNTED."""
+    stages at 2^20 x 2^20, and launched the strip, batched and hop
+    kernels, its stage 2 one hop launch a hop issued and none of the
+    three-launch route's (its hops are one cluster's)."""
     got = json.loads(line)
     d = got["detail"]
     missing = bench_py_keys() - set(got) - set(d)
@@ -1880,9 +1964,13 @@ def bench_checked(line, kind, card):
     if wrong or set(d["full_stage_s"]) != {f"stage{k}" for k in range(1, 7)}:
         raise AssertionError(f"the bench's line is wrong: {wrong} "
                              f"{d['full_stage_s']}")
-    for k in COUNTED:
+    for k in ("strip", "batched_strip", "hop"):
         if d["launches"][k] <= 0:
             raise AssertionError(f"the bench launched no {k} kernel")
+    st2, at2 = d["full_stage2"], d["full_launches"]["stage2"]
+    if at2["hop"] != st2["issued"] or any(at2[k] for k in THREE):
+        raise AssertionError(f"the bench's hops were not one hop launch "
+                             f"each: {st2}, {at2}")
     return got
 
 
@@ -2014,8 +2102,8 @@ def main() -> int:
     err["strip"] = max(err["strip"], err_main, err_hop)
     n_fixed, err_fixed, *times["batched_strip_fixed"] = fixed_main(dev)
     err["batched_strip_fixed"] = max(err["batched_strip_fixed"], err_fixed)
-    err_hops, hop_times = hop_phase(dev)
-    err["hop_prep"] = err["hop_match"] = err_hops
+    err_three, err["hop"], hop_times, hop_shapes = hop_phase(dev)
+    err["hop_prep"] = err["hop_match"] = err_three
     times.update(hop_times)
     kernels.event_log = []  # time every launch of the main-path runs
     golden_pairs()
@@ -2126,7 +2214,16 @@ def main() -> int:
             bound, by = bound_of(
                 f"{name}, the filling launch of {fill['body']}", ms, cells,
                 moved, 1e3 * cells / by_ops, old_rate, code_rate["tracked"])
-        elif name.startswith("hop_"):
+        elif name == "hop":
+            # the NW cells to the first stop (k = hb, as a near-diagonal
+            # path crosses) and the bytes: a, the window, the cut to the
+            # stop, the state
+            ms, plain_ms, cells, moved = times[name]
+            bound, by = bound_of(f"{name} at the CLI's hop of the 1M pair, "
+                                 f"its first stop at k = hb", ms, cells,
+                                 moved, rate["untracked"], old_rate,
+                                 code_rate["untracked"])
+        elif name in THREE:
             # bytes alone: a few a column, so the bound is the bytes over
             # the memory rate, and a launch's latency sets the time
             ms, plain_ms, moved = times[name]
@@ -2164,6 +2261,29 @@ def main() -> int:
         bound_of(f"strip, a sharded round over {D} slab(s) "
                  f"({cells} cells a launch, mean of {n})", ms / n, cells,
                  moved, rate["tracked"], old_rate, code_rate["tracked"])
+    # the hop kernel at each main-path hop, to its stop and swept to the
+    # end, against the bound of the cells each needs; beside it the latency
+    # floor (no bound): the sweep's steps, (the columns + hb / alpha), times
+    # 2 alpha dependent operations a step at the card's dependent latency
+    hop_row = kernel_rows[list(KERNELS).index("hop")]
+    hop_row["shapes"] = {}
+    for shape, t in hop_shapes.items():
+        alpha, hb, W = t["geometry"][0], t["shape"]["hb"], t["shape"]["W"]
+        for form, cols in (("hop", hb), ("hop_full", W)):
+            bound, by = bound_of(f"hop at {shape} ({form})", t["ms"][form],
+                                 t["cells"][form], t["bytes"][form],
+                                 rate["untracked"], old_rate,
+                                 code_rate["untracked"])
+            floor = (cols + hb / alpha) * 2 * alpha * roof["ser_latency_ns"]
+            hop_row["shapes"][f"{shape}, {form}"] = {
+                "ms": t["ms"][form], "bound_ms": bound, "bound_by": by,
+                "latency_floor_ms": floor / 1e6,
+                "three_launches_ms": t["ms"]["three"],
+                "in_path_ms": t["in_path"], "issue_ms": t["issue_ms"]}
+            log(f"hop at {shape} ({form}): latency floor {floor / 1e6:.4f} "
+                f"ms (no bound: {cols} + {hb} / {alpha} steps x {2 * alpha} "
+                f"dependent operations x {roof['ser_latency_ns']} ns); the "
+                f"three launches {t['ms']['three']:.4f} ms")
     kernel_rows[1]["stage4_launches"] = levels
     kernel_rows[0]["pruned_stage1"] = pruned1
     kernel_rows[0]["shapes"] = {

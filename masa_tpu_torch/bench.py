@@ -52,12 +52,12 @@ import torch
 
 BASELINE_GCUPS = 25.82   # 1M x 1M stage 1, GTX 560 Ti (CUDAlign, TPDS 2013)
 BASELINE_FULL_S = 43.0   # the full 1M x 1M run on the same card
-COUNTED = ("strip", "batched_strip", "hop_prep", "hop_match")
+COUNTED = ("strip", "batched_strip", "hop", "hop_prep", "hop_match")
 STATS_1 = ("flush_interval", "dev_rows", "dev_row_bytes", "dev_row_budget",
            "lazy_rows", "ram_rows", "ram_bytes", "disk_rows", "disk_bytes",
            "pruned_cells")
 STATS_2 = ("dev_matches", "host_matches", "window_reads", "window_bytes",
-           "chained", "segments", "chain_breaks")
+           "chained", "segments", "chain_breaks", "issued")
 
 # a stage's completion line, as the runner (stages/runner.py) and the
 # CLI's split and sharded modes print it: "stageN: ... in X.XXs" for

@@ -1,16 +1,19 @@
 """Build and bind the hand-written Hopper kernels (``csrc/*.cu``).
 
 Each kernel source (``csrc/strip.cu``, ``csrc/batched_strip.cu``,
-``csrc/roofline.cu``, which include ``csrc/gotoh_cell.cuh``, the DP cell;
-``csrc/hop.cu``, a stage-2 hop's prologue and epilogue) is compiled with ``nvcc`` for ``sm_90a`` into its own
+``csrc/roofline.cu`` and ``csrc/hop.cu``, which include
+``csrc/gotoh_cell.cuh``, the DP cell) is compiled with ``nvcc`` for
+``sm_90a`` into its own
 shared library with a plain C interface, at first use, into
 ``masa_tpu_torch/_build/`` (named by the source's hash, so an edited source
 rebuilds), and bound with ``ctypes``.  Nothing here runs when the module is
 imported: the CPU tests import it on hosts with no toolkit.
 
 ``strip_cuda``, ``batched_strip_cuda``, ``batched_strip_fixed_cuda``,
-``hop_prep_cuda`` and ``hop_match_cuda`` launch their kernels on PyTorch's current stream and count their launches
-in ``.launches``; the roofline tool's launcher lives in
+``hop_cuda`` (a stage-2 hop in one launch), ``hop_prep_cuda`` and
+``hop_match_cuda`` (the prologue and epilogue of a hop taller than a
+cluster holds) launch their kernels on PyTorch's current stream and count
+their launches in ``.launches``; the roofline tool's launcher lives in
 ``masa_tpu_torch/tools/roofline.py``.
 """
 
@@ -158,6 +161,10 @@ _SIGNATURES = {
         + ["p"] * 6,
         "masa_hop_match_launch": ["p", "p", "i", "p", "p", "p", "p"]
         + ["i"] * 6 + ["p"],
+        "masa_hop_launch": (["p", "i", "p", "i", "p", "p", "i"] + ["p"] * 5
+                            + ["i"] * 9 + ["p"]),
+        "masa_hop_max_cluster": [],
+        "masa_hop_max_warps": [],
     },
 }
 
@@ -341,10 +348,11 @@ strip_cuda.launches = 0
 
 
 def check_flags(values) -> None:
-    """Raise if any strip kernel error flag read back is set."""
+    """Raise if any error flag of the strip or hop kernel read back is
+    set."""
     if any(int(v) for v in values):
-        raise RuntimeError("strip kernel: a sub-strip waited over 10 s for "
-                           "the bus of the sub-strip above it")
+        raise RuntimeError("strip or hop kernel: a wait for the rows above "
+                           "saw nothing move for 10 s")
 
 
 # batched_strip_cuda's per-element fields, in the kernel's order (the
@@ -661,3 +669,152 @@ def hop_match_cuda(cut_h, cut_f, rev_h, rev_f, st_in, st_out, W: int,
 
 
 hop_match_cuda.launches = 0
+
+
+# csrc/hop.cu: compute warps a CTA at most (MAXW), the portable cluster
+# and the largest one the kernel asks for where the card allows it
+HOP_MAX_WARPS = 16
+HOP_PORTABLE_CLUSTER = 8
+HOP_MAX_CLUSTER = 16
+# compute warps of a hop's CTA (one a quarter-SM) while a cluster of them
+# covers the hop
+HOP_CTA_WARPS = 4
+_hop_cluster: dict = {}  # device index -> masa_hop_max_cluster()
+
+
+class HopGeometry(NamedTuple):
+    """How ``hop_cuda`` cuts a hop: ``alpha`` rows a thread, ``warps``
+    compute warps a CTA (a band of ``rows`` rows) and ``cluster`` CTAs,
+    each with rows."""
+
+    alpha: int
+    warps: int
+    cluster: int
+
+    @property
+    def rows(self) -> int:
+        return 32 * self.alpha * self.warps
+
+
+def hop_geometry(hb: int, W: int, sms: int,
+                 max_cluster: int = HOP_PORTABLE_CLUSTER
+                 ) -> HopGeometry | None:
+    """The shape of one hop of ``hb`` rows x ``W`` columns on a card of
+    ``sms`` SMs whose largest cluster of hop CTAs is ``max_cluster`` (8 or
+    16), or None where the hop is taller than one cluster holds (it takes
+    the three launches: ``hop_prep_cuda``, the strip kernel,
+    ``hop_match_cuda``).  Needs no card.
+
+    A hop's time is the latency of a wavefront step times its steps, so
+    its rows spread over as many SMs as a cluster has, at ``HOP_CTA_WARPS``
+    warps a CTA, one a quarter-SM: 4 rows a thread (512 rows a CTA; a hop
+    of up to 512 rows is one CTA), then 8 (1024), then more warps (up to
+    ``HOP_MAX_WARPS``: 4096 rows a CTA).  On an H100 (``tools/hop_tune.py
+    --variants``) this shape was the fastest at 512 x 1024 and at 8192 x
+    16384: fewer rows a thread put more warps in the chain, each of which
+    adds its lag to the sweep, and more warps a quarter-SM slowed every
+    step.  The width plays no part."""
+    if hb < 1 or W < 1 or sms < 1:
+        raise ValueError(f"a hop of {hb} rows x {W} columns on {sms} SMs")
+    if max_cluster not in (HOP_PORTABLE_CLUSTER, HOP_MAX_CLUSTER):
+        raise ValueError(f"a cluster of {max_cluster} CTAs: 8 or 16")
+    cap = min(max_cluster, sms)
+    w4 = HOP_CTA_WARPS
+    if hb <= cap * 32 * 4 * w4:
+        alpha, warps = 4, min(w4, -(-hb // (32 * 4)))
+    elif hb <= cap * 32 * 8 * w4:
+        alpha, warps = 8, w4
+    else:
+        alpha, warps = 8, -(-hb // (cap * 32 * 8))
+        if warps > HOP_MAX_WARPS:
+            return None
+    return HopGeometry(alpha, warps, -(-hb // (32 * alpha * warps)))
+
+
+def hop_max_cluster(dev) -> int:
+    """The largest cluster of hop CTAs the card ``dev`` schedules: 16 where
+    it holds one of that non-portable size, else 8 (read once a device)."""
+    dev = torch.device(dev)
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _hop_cluster:
+        with torch.cuda.device(idx):
+            n = int(load("hop").masa_hop_max_cluster())
+        if n < 1:
+            raise RuntimeError(f"could not query the card's clusters: CUDA "
+                               f"error {-n}")
+        _hop_cluster[idx] = n
+    return _hop_cluster[idx]
+
+
+def hop_route(hb: int, W: int, dev) -> HopGeometry | None:
+    """``hop_geometry`` on the card ``dev``: the shape ``hop_cuda`` takes,
+    or None for the three launches."""
+    return hop_geometry(hb, W, _sms(dev), hop_max_cluster(dev))
+
+
+def hop_cuda(a, s1r, cut_h, cut_f, st_in, st_out, W: int, *, match: int,
+             mismatch: int, gap_open: int, gap_ext: int, sw: bool,
+             last_row: bool = False, flags: list | None = None,
+             geometry: HopGeometry | None = None):
+    """Launch one stage-2 hop (``csrc/hop.cu``, ``hop_kernel``; the
+    contract of ``wavefront.hop_plain``): the prologue, the NW sweep of
+    the ``a`` rows (uint8, hb of them) against the window of W characters
+    of ``s1r`` (uint8) that the state ``st_in`` picks, and the goal match
+    against the cut ``cut_h``/``cut_f`` (int32), the next state written
+    to ``st_out`` (both (4,) int32), all on the card.  ``last_row``: also
+    the hop's last row, the sweep run to its end.  Returns ``(st_out,
+    rev_h, rev_f)``, the last row None unless asked.
+
+    ``geometry`` forces a shape (``hop_route``'s by default; a hop taller
+    than a cluster raises).  The error flag is read on the host after the
+    launch, or appended to ``flags`` as ``strip_cuda`` does."""
+    dev = s1r.device
+    if dev.type != "cuda":
+        raise ValueError(f"hop_cuda needs CUDA tensors, got {dev}")
+    hb, n, cn = a.numel(), s1r.numel(), cut_h.numel()
+    for name, x, dtype, k in (("a", a, torch.uint8, hb),
+                              ("s1r", s1r, torch.uint8, n),
+                              ("cut_h", cut_h, torch.int32, cn),
+                              ("cut_f", cut_f, torch.int32, cn)):
+        _check(name, x, dtype, k, dev)
+    _check_state("st_in", st_in, dev)
+    _check_state("st_out", st_out, dev)
+    if abs(st_in.data_ptr() - st_out.data_ptr()) < 16:
+        raise ValueError("st_in and st_out overlap")
+    if not (1 <= W < n and hb >= 1) or max(n, cn) >= 1 << 31:
+        raise ValueError(f"a hop of {hb} rows x {W} columns over a "
+                         f"sequence of {n}")
+    geo = geometry if geometry is not None else hop_route(hb, W, dev)
+    if geo is None:
+        raise ValueError(f"a hop of {hb} rows is taller than a cluster "
+                         f"holds: it takes the three launches")
+    lib = load("hop")
+    error = torch.empty(1, dtype=torch.int32, device=dev)  # the kernel zeroes
+    rev_h = rev_f = None
+    if last_row:
+        rev_h, rev_f = (torch.empty(W, dtype=torch.int32, device=dev)
+                        for _ in "hf")
+
+    def ptr(x):
+        return ctypes.c_void_p(x.data_ptr() if x is not None else 0)
+
+    with torch.cuda.device(dev), _launch_events("hop"):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.masa_hop_launch(
+            ptr(a), hb, ptr(s1r), n, ptr(cut_h), ptr(cut_f), cn, ptr(st_in),
+            ptr(st_out), ptr(rev_h), ptr(rev_f), ptr(error), W, match,
+            mismatch, gap_open, gap_ext, int(sw), geo.alpha, geo.warps,
+            geo.cluster, ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"hop kernel launch failed: CUDA error {rc} "
+                           f"({geo.alpha} rows a thread, {geo.warps} warps "
+                           f"x {geo.cluster} CTAs)")
+    hop_cuda.launches += 1
+    if flags is not None:
+        flags.append(error)
+    else:
+        check_flags([int(error.item())])
+    return st_out, rev_h, rev_f
+
+
+hop_cuda.launches = 0

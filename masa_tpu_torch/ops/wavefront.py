@@ -742,6 +742,17 @@ def hop_prep_plain(s1r, st, W: int, hb: int, gap_open: int, gap_ext: int):
             torch.full((hb,), NEG, dtype=i32, device=dev))
 
 
+def hop_eligible(cj: int, score: int, ok: int, W: int, hb: int,
+                 cut_n: int, match: int, sw: bool) -> bool:
+    """Does a hop match at all?  Where the host march would take this
+    exact window: cj >= W + 1 (the window clear of column 0), cj inside
+    the cut, and, under SW, the goal not reachable inside the hop (score >
+    min(hb, cj) * match), else the host would search for the alignment's
+    start; and the state entered with ok."""
+    return bool(ok) and W + 1 <= cj <= cut_n and not (
+        sw and score <= min(hb, cj) * match)
+
+
 def hop_match_plain(cut_h, cut_f, rev_h, rev_f, st_in, st_out, W: int,
                     hb: int, *, match: int, gap_open: int, gap_ext: int,
                     sw: bool):
@@ -750,19 +761,12 @@ def hop_match_plain(cut_h, cut_f, rev_h, rev_f, st_in, st_out, W: int,
     state update, written to ``st_out``.  The plain version of
     ``kernels.hop_match_cuda`` (it reads the state on the host).
 
-    The hop is eligible where the host march would take this exact
-    window: cj >= W + 1 (the window clear of column 0) and, under SW, the
-    goal not reachable inside the hop (score > min(hb, cj) * match), else
-    the host would search for the alignment's start.  A hop that is not
-    eligible, that enters with ok = 0 or whose match is not a hit carries
-    (cj, score, type) through with ok = 0; a hit moves to (cj - k, the
-    stored score, MATCH or GAP_2, 1)."""
+    A hop that is not eligible (``hop_eligible``), or whose match is not
+    a hit carries (cj, score, type) through with ok = 0; a hit moves to
+    (cj - k, the stored score, MATCH or GAP_2, 1)."""
     cj, score, typ, ok = (int(x) for x in st_in.tolist())
-    ok = ok and W + 1 <= cj <= cut_h.numel()
-    if sw and score <= min(hb, cj) * match:
-        ok = 0
     out = [cj, score, typ, 0]
-    if ok:
+    if hop_eligible(cj, score, ok, W, hb, cut_h.numel(), match, sw):
         goal = score + (gap_open if typ != CrosspointType.MATCH else 0)
         # the reverse row's border element: H and F of the column border
         # at row hb (border_h and stages/core._border_f_value agree there)
@@ -778,35 +782,81 @@ def hop_match_plain(cut_h, cut_f, rev_h, rev_f, st_in, st_out, W: int,
     return st_out
 
 
+def hop_plain(a, s1r, cut_h, cut_f, st_in, st_out, W: int, *, match: int,
+              mismatch: int, gap_open: int, gap_ext: int, sw: bool,
+              last_row: bool = False):
+    """One stage-2 hop from the state ``st_in`` to ``st_out`` on any
+    device: ``hop_prep_plain``, the reverse strip (``strip_plain``: NW,
+    nothing tracked, corner 0) and ``hop_match_plain``.  The plain version
+    of ``kernels.hop_cuda``, with its contract: ``a`` the hop's rows of
+    the reversed seq0 (hb of them), ``s1r`` the reversed seq1, ``cut_h``/
+    ``cut_f`` the stored cut.  ``last_row``: also the hop's last row
+    ``(rev_h, rev_f)`` (W columns), swept on the clamped window where the
+    hop is not eligible.  Returns ``(st_out, rev_h, rev_f)``, the last row
+    None unless asked; a hop that is not eligible and not asked for its
+    row is not swept."""
+    hb = a.numel()
+    cj, score, _, ok = (int(x) for x in st_in.tolist())
+    if not last_row and not hop_eligible(cj, score, ok, W, hb,
+                                         cut_h.numel(), match, sw):
+        st_out.copy_(st_in)
+        st_out[3] = 0
+        return st_out, None, None
+    b, bus_h, bus_f, col_h, col_e = hop_prep_plain(s1r, st_in, W, hb,
+                                                   gap_open, gap_ext)
+    out = strip_plain(a, b, bus_h, bus_f, col_h, col_e, HOP_CORNER,
+                      match=match, mismatch=mismatch, gap_open=gap_open,
+                      gap_ext=gap_ext, sw=False)
+    hop_match_plain(cut_h, cut_f, out.bus_h, out.bus_f, st_in, st_out, W,
+                    hb, match=match, gap_open=gap_open, gap_ext=gap_ext,
+                    sw=sw)
+    if last_row:
+        return st_out, out.bus_h, out.bus_f
+    return st_out, None, None
+
+
+def hop_three(a, s1r, cut_h, cut_f, st_in, st_out, W: int, *, match: int,
+              mismatch: int, gap_open: int, gap_ext: int, sw: bool,
+              flags: list | None = None):
+    """One hop on the card as three launches: ``kernels.hop_prep_cuda``,
+    the strip kernel (NW, nothing tracked; its error flag appended to
+    ``flags``) and ``kernels.hop_match_cuda``.  The route of a hop taller
+    than a cluster of ``kernels.hop_cuda`` holds.  Returns ``st_out``."""
+    hb = a.numel()
+    b, bus_h, bus_f, col_h, col_e = kernels.hop_prep_cuda(
+        s1r, st_in, W, hb, gap_open, gap_ext)
+    out = strip(a, b, bus_h, bus_f, col_h, col_e, HOP_CORNER, match=match,
+                mismatch=mismatch, gap_open=gap_open, gap_ext=gap_ext,
+                sw=False, flags=flags)
+    return kernels.hop_match_cuda(cut_h, cut_f, out.bus_h, out.bus_f, st_in,
+                                  st_out, W, hb, match=match,
+                                  gap_open=gap_open, gap_ext=gap_ext, sw=sw)
+
+
 def hop_step(a, s1r, cut_h, cut_f, st_in, st_out, W: int, *, match: int,
              mismatch: int, gap_open: int, gap_ext: int, sw: bool,
              flags: list | None = None):
     """One stage-2 hop from the state ``st_in`` to ``st_out``, with no read
-    on the host: the prologue (``hop_prep``), the reverse strip, NW with
-    nothing tracked (the strip kernel, its error flag appended to
-    ``flags``), and the epilogue (``hop_match``).  ``a`` is the hop's
-    rows of the reversed seq0 (hb of them, known on the host: a chain's
-    rows are fixed special rows), ``s1r`` the reversed seq1, ``cut_h``/
-    ``cut_f`` the stored cut (a row of the row cache).  The plain
-    versions run for CPU tensors, the kernels for CUDA tensors; any other
-    device raises."""
+    on the host (the contract of ``hop_plain``).  CPU tensors run
+    ``hop_plain``; CUDA tensors run ``kernels.hop_cuda``, one launch,
+    where ``kernels.hop_route`` gives the hop's shape a cluster, else
+    ``hop_three`` (the route follows the shape alone); the kernels' error
+    flags go to ``flags``.  Any other device raises."""
     hb = a.numel()
     if not 1 <= W < s1r.numel() or hb < 1:
         raise ValueError(f"a hop of {hb} rows needs 1 <= W < "
                          f"{s1r.numel()}, got W = {W}")
+    kw = dict(match=match, mismatch=mismatch, gap_open=gap_open,
+              gap_ext=gap_ext, sw=sw)
+    args = (a, s1r, cut_h, cut_f, st_in, st_out, W)
     if s1r.device.type == "cpu":
-        prep, finish = hop_prep_plain, hop_match_plain
-    elif s1r.device.type == "cuda":
-        prep, finish = kernels.hop_prep_cuda, kernels.hop_match_cuda
-    else:
+        return hop_plain(*args, **kw)[0]
+    if s1r.device.type != "cuda":
         raise ValueError(f"no hop implementation for device {s1r.device}")
-    b, bus_h, bus_f, col_h, col_e = prep(s1r, st_in, W, hb, gap_open,
-                                         gap_ext)
-    out = strip(a, b, bus_h, bus_f, col_h, col_e, HOP_CORNER, match=match,
-                mismatch=mismatch, gap_open=gap_open, gap_ext=gap_ext,
-                sw=False, flags=flags)
-    return finish(cut_h, cut_f, out.bus_h, out.bus_f, st_in, st_out, W, hb,
-                  match=match, gap_open=gap_open, gap_ext=gap_ext, sw=sw)
+    geo = kernels.hop_route(hb, W, s1r.device)
+    if geo is None:
+        return hop_three(*args, flags=flags, **kw)
+    return kernels.hop_cuda(*args, flags=flags, geometry=geo, **kw)[0]
 
 
 # ---------------------------------------------------------------------------

@@ -19,7 +19,8 @@ store and matches that on the device (``_fetch_window_cut``).
 
 On a card the march's steady hops run chained, as masa_tpu's device march
 runs them (``_run_hop_chain``, ``_run_arb_hop``): the march state stays on
-the device between hops (``wavefront.hop_step``), a segment of up to
+the device between hops (``wavefront.hop_step``: one launch of the hop
+kernel a hop, three for a hop taller than a cluster), a segment of up to
 CHAIN_HOPS hops is issued with no read on the host and pulls its verdicts
 once, and a hop that is not eligible or does not hit hands the march back
 to the host path from that hop, so the crosspoints are those of the host
@@ -208,7 +209,9 @@ class MarchStats:
     (the chained hops among them) and on the host, the cut windows it read
     from the store with their int32 H and F bytes, the hops it handed on
     from chained segments (an endpoint hop is a segment of one), the
-    segments and those that broke before their end."""
+    segments and those that broke before their end, and the hops the
+    segments issued on the device (those after a break, computed in vain,
+    among them)."""
     dev_matches: int = 0
     host_matches: int = 0
     window_reads: int = 0
@@ -216,12 +219,14 @@ class MarchStats:
     chained: int = 0
     segments: int = 0
     chain_breaks: int = 0
+    issued: int = 0
 
     def text(self) -> str:
         return (f"matched on the device {self.dev_matches}, on the host "
                 f"{self.host_matches}; window reads {self.window_reads} "
-                f"({self.window_bytes} bytes); chained {self.chained} in "
-                f"{self.segments} segments, {self.chain_breaks} broken")
+                f"({self.window_bytes} bytes); chained {self.chained} of "
+                f"{self.issued} issued in {self.segments} segments, "
+                f"{self.chain_breaks} broken")
 
 
 def border_gap_values(h_border: np.ndarray, params: ScoreParams) -> np.ndarray:
@@ -589,7 +594,7 @@ def _run_segment(rows, cp: Crosspoint, W: int, seq0, params: ScoreParams,
                  on_crosspoint, stats) -> tuple[int, int]:
     """Issue one hop for each of ``rows`` (descending, each in the row
     cache) from ``cp`` at window W, the state passed on the device from
-    hop to hop; then read the verdicts and the strip kernels' error flags
+    hop to hop; then read the verdicts and the kernels' error flags
     at once (a set flag raises) and hand on the hops before the first
     with ok = 0, as the host march would have found them.  Returns
     (hops handed on, hops issued)."""
@@ -627,6 +632,7 @@ def _run_segment(rows, cp: Crosspoint, W: int, seq0, params: ScoreParams,
         stats.chained += done
         stats.dev_matches += done
         stats.chain_breaks += done < len(rows)
+        stats.issued += len(rows)
     return done, len(rows)
 
 
@@ -668,7 +674,7 @@ def _run_arb_hop(seq0, params: ScoreParams, cp: Crosspoint, specials,
                  on_crosspoint, stats):
     """One hop of any height on the device, as a segment of one: the
     endpoint hop, and the rows near the origin whose spacing differs (the
-    port of masa_tpu's ``_run_arb_hop``).  The strip kernel takes any
+    port of masa_tpu's ``_run_arb_hop``).  The hop kernels take any
     height, so masa_tpu's ladder of rung strips, dynamic tail and
     row-sweep residue is not needed.  The same conditions as a chain's
     hop, checked on the host first.  Returns (handed on, issued), or None

@@ -1,6 +1,6 @@
 """The Hopper kernels (the strip kernel, the two batched strip kernels, the
-roofline bodies and the stage-2 hop's prologue and epilogue) against their
-plain PyTorch versions, on the card.
+roofline bodies, the one-launch stage-2 hop and the three-launch hop's
+prologue and epilogue) against their plain PyTorch versions, on the card.
 
 These need a CUDA GPU and nvcc and skip elsewhere, and import nothing of
 masa_tpu.  The repo's conftest imports JAX, which a machine with only the
@@ -734,10 +734,82 @@ def test_hop_wrappers_reject_bad_inputs(cuda):
                                sw=False)
 
 
+@pytest.mark.parametrize("W,hb", [(1024, 512), (2048, 1000), (16384, 8192),
+                                  (1024, 100), (8192, 4100)])
+def test_hop_kernel_matches_plain(cuda, W, hb):
+    """The one-launch hop against wavefront.hop_plain at the main paths'
+    hops (the bench's, the CLI's), past one CTA and on a cluster of odd
+    size: every case of hop_tune.LABELS, the state with the last row and
+    without, the whole last row."""
+    err, seen = hop_tune.check_fused(cuda, 1 << 20, W, hb)
+    assert err == 0 and set(seen) == set(hop_tune.LABELS)
+
+
+def test_hop_kernel_at_every_geometry(cuda):
+    """Every CTA shape and cluster that covers a hop gives the plain
+    hop's state."""
+    kw = dict(match=1, mismatch=-3, gap_open=3, gap_ext=2, sw=True)
+    (a, s1r, cut_h, cut_f), st = hop_tune.planted(cuda, 1 << 16, 2048,
+                                                     1024)
+    want = torch.empty(4, dtype=torch.int32, device=cuda)
+    wf.hop_plain(a, s1r, cut_h, cut_f, st, want, 2048, **kw)
+    geos = hop_tune.geometries(1024, kernels.hop_max_cluster(cuda))
+    assert len(geos) >= 6
+    for geo in geos:
+        got = torch.empty(4, dtype=torch.int32, device=cuda)
+        kernels.hop_cuda(a, s1r, cut_h, cut_f, st, got, 2048, geometry=geo,
+                         **kw)
+        assert got.tolist() == want.tolist(), geo
+
+
+def test_tall_hop_takes_three_launches(cuda, monkeypatch):
+    """A hop taller than a cluster holds goes through hop_prep, the strip
+    kernel and hop_match, by its shape alone; forced onto that route a
+    hop gives hop_plain's state."""
+    assert kernels.hop_route(65537, 131072, cuda) is None
+    assert kernels.hop_route(8192, 16384, cuda) is not None
+    kw = dict(match=1, mismatch=-3, gap_open=3, gap_ext=2, sw=True)
+    (a, s1r, cut_h, cut_f), st = hop_tune.planted(cuda, 1 << 16, 2048,
+                                                     1024)
+    want = torch.empty(4, dtype=torch.int32, device=cuda)
+    wf.hop_plain(a, s1r, cut_h, cut_f, st, want, 2048, **kw)
+    monkeypatch.setattr(kernels, "hop_route", lambda *a: None)
+    counts = [kernels.hop_prep_cuda.launches, kernels.hop_cuda.launches]
+    got = torch.empty(4, dtype=torch.int32, device=cuda)
+    flags = []
+    wf.hop_step(a, s1r, cut_h, cut_f, st, got, 2048, flags=flags, **kw)
+    kernels.check_flags(torch.cat(flags).tolist())
+    assert got.tolist() == want.tolist()
+    assert [kernels.hop_prep_cuda.launches, kernels.hop_cuda.launches] \
+        == [counts[0] + 1, counts[1]]
+
+
+def test_hop_max_warps_mirror_the_kernel(cuda):
+    assert kernels.load("hop").masa_hop_max_warps() == kernels.HOP_MAX_WARPS
+    assert kernels.hop_max_cluster(cuda) in (kernels.HOP_PORTABLE_CLUSTER,
+                                             kernels.HOP_MAX_CLUSTER)
+
+
+def test_hop_kernel_wrapper_rejects_bad_inputs(cuda):
+    kw = dict(match=1, mismatch=-3, gap_open=3, gap_ext=2, sw=True)
+    (a, s1r, cut_h, cut_f), st = hop_tune.planted(cuda, 1 << 14, 1024,
+                                                     512)
+    out = torch.empty(4, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):  # the state read where it is written
+        kernels.hop_cuda(a, s1r, cut_h, cut_f, st, st, 1024, **kw)
+    with pytest.raises(ValueError):  # W >= n
+        kernels.hop_cuda(a, s1r, cut_h, cut_f, st, out, s1r.numel(), **kw)
+    with pytest.raises(ValueError):  # a cut of int64
+        kernels.hop_cuda(a, s1r, cut_h.long(), cut_f, st, out, 1024, **kw)
+    with pytest.raises(RuntimeError):  # a geometry that leaves a CTA empty
+        kernels.hop_cuda(a, s1r, cut_h, cut_f, st, out, 1024,
+                         geometry=kernels.HopGeometry(4, 4, 2), **kw)
+
+
 def test_chained_march_on_the_card_matches_cpu(cuda):
-    """A march on the card chains its hops (chain=None is on there) and
-    gives the CPU host march's crosspoints; its hops copy no sequence
-    from the host."""
+    """A march on the card chains its hops (chain=None is on there), one
+    launch of the hop kernel a hop issued, and gives the CPU host march's
+    crosspoints; its hops copy no sequence from the host."""
     from masa_tpu_torch.stages import core, pipeline
     from masa_tpu_torch.types import AlignmentStart
 
@@ -757,11 +829,15 @@ def test_chained_march_on_the_card_matches_cpu(cuda):
         res, ep = pipeline.stage1_pass(s0, s1, pcfg)
         stats = core.MarchStats()
         before = dict(wf.dev_seq_counts)
+        launches = (kernels.hop_cuda.launches, kernels.hop_prep_cuda.launches)
         got[dev] = [tuple(c) for c in pipeline.stage2_march(
             s0, s1, pcfg, ep, res.specials, res.dev_cache, stats)]
         if dev == "cuda":
             assert stats.chained >= 3 and stats.segments >= 1, stats
             assert wf.dev_seq_counts["uploads"] == before["uploads"]
+            assert (kernels.hop_cuda.launches - launches[0],
+                    kernels.hop_prep_cuda.launches - launches[1]) \
+                == (stats.issued, 0)
         else:
             assert stats.segments == 0
     assert got["cuda"] == got["cpu"]

@@ -1,17 +1,17 @@
 """The port's chained stage-2 hops against masa_tpu, on the CPU.
 
-``wavefront.hop_step`` (the plain prologue, strip and epilogue on CPU
-tensors, standing for the card's three launches) is held hop by hop
-against masa_tpu's host ``reverse_pass_and_match`` (its NumPy oracle) on
-the same seeded inputs: every crosspoint type, SW and NW, a hit, a miss,
-an overshoot, a window that reaches column 0 (cj < W + 1), a goal within
-reach under SW and a state entering with ok = 0.  Then whole marches:
-``reverse_march(chain=True)`` (``_run_hop_chain``, ``_run_arb_hop``)
-against the port's host march and masa_tpu's host march (masa_tpu's own
-chain tests are slow); an endpoint hop off the spacing; a segment broken
-by a poisoned cached row, replayed on the host; and a failing hop or a
-set error flag, which must raise, not fall back.  Tolerance: exact
-equality."""
+``wavefront.hop_step`` (``hop_plain`` on CPU tensors: the plain
+prologue, strip and epilogue, standing for the card's hop kernel) is held
+hop by hop against masa_tpu's host ``reverse_pass_and_match`` (its NumPy
+oracle) on the same seeded inputs: every crosspoint type, SW and NW, a
+hit, a miss, an overshoot, a window that reaches column 0 (cj < W + 1), a
+goal within reach under SW and a state entering with ok = 0.  Then whole
+marches: ``reverse_march(chain=True)`` (``_run_hop_chain``,
+``_run_arb_hop``) against the port's host march and masa_tpu's host march
+(masa_tpu's own chain tests are slow); an endpoint hop off the spacing; a
+segment broken by a poisoned cached row, replayed on the host; and a
+failing hop or a set error flag, which must raise, not fall back.
+Tolerance: exact equality."""
 
 import numpy as np
 import pytest
@@ -349,8 +349,9 @@ def test_broken_segment_replays_on_the_host(homologs):
 
 
 def test_failing_hop_raises_and_does_not_fall_back(homologs, monkeypatch):
-    """No fallback: a hop step that raises, or a strip whose error flag
-    comes back set, makes the march raise."""
+    """No fallback: a hop step that raises, or a hop whose error flag comes
+    back set (on the card the hop kernel's, or the strip kernel's on the
+    three-launch route), makes the march raise."""
     s0, s1 = homologs
     start = AlignmentStart.SEQUENCE_1_AND_2
     res, ep, _, _ = stage1(s0, s1, start)
@@ -362,13 +363,13 @@ def test_failing_hop_raises_and_does_not_fall_back(homologs, monkeypatch):
         mp.setattr(wf, "hop_step", broken)
         with pytest.raises(RuntimeError, match="hop kernel launch failed"):
             march(s0, s1, res, ep, start, True)
-    orig = wf.strip
+    orig = wf.hop_step
 
     def flagged(*a, flags=None, **k):
         if flags is not None:
             flags.append(torch.ones(1, dtype=torch.int32))
         return orig(*a, flags=flags, **k)
 
-    monkeypatch.setattr(wf, "strip", flagged)
-    with pytest.raises(RuntimeError, match="strip kernel"):
+    monkeypatch.setattr(wf, "hop_step", flagged)
+    with pytest.raises(RuntimeError, match="hop kernel"):
         march(s0, s1, res, ep, start, True)
