@@ -142,11 +142,43 @@ Phases (any failure raises and the run exits non-zero):
      path's.  Before it, what this
      process holds and a probe of the temporary directory's files; beside
      it, its CPU seconds and this process's.
+  2k. (after phase 2j) the stage-2 hops of the chromosome-scale runs
+     (``big_hops``: the shapes tools/big_run.py's JobConfig gives, read
+     off the code): the 5M run's hop, 12,288 x 32,768, one launch of the
+     hop kernel, timed and held to the plain versions by
+     ``hop_tune.timed``; then one hop of the 23M run's shape, 72,704 x
+     262,144 (past 2^31 cells, taller than a cluster), on a stretch of
+     the 23M pair with a real entering state (stage 1 of the pair's first
+     4 hb rows x 2 W columns through the strip kernel, the crosspoint the
+     best cell of its last row), through ``wavefront.hop_step``, which
+     must take ``hop_three`` (one launch each of hop_prep, kernel 1 and
+     hop_match) and hit; its state and last row equal to the three plain
+     steps' (``hop_prep_plain``, ``strip_plain``, ``hop_match_plain``),
+     max |diff| 0; timed against its bound;
+  2l. (after phase 2k) stage 1's launch at the 5M run's shape (307,200
+     rows x 5,242,945 columns of the 5M pair, its last full launch's
+     rows, a row flushed every 12,288, pruning inside the launch from a
+     zero row with a best handed in that keeps a band of each sub-strip's
+     last rows-left columns): the first flush interval's sub-strips and
+     every one from the grid's size to the launch's end against the
+     plain twin from the launch's own flushed rows, byte for byte
+     (``big_launch_phase``);
+  11. (after phase 10) ``python -m masa_tpu_torch.tools.big_run 5M
+     --fresh`` as a child process: the 5M pair (5,242,880 x 5,242,945)
+     through ``runner.align_job`` at JobConfig's defaults (a special row
+     every 12,288 rows); it must score masa_tpu's 3984627 with stage 5
+     verified and stage 6 written, launch the strip kernel in stage 1,
+     the batched kernel in stage 4 and the hop kernel once a hop its
+     stage 2 issued, and no hop_prep or hop_match; its line is printed
+     whole, its launches count with the main path's;
+  11b. the 5M run's stage 4 rebuilt from phase 11's stage-3 crosspoints:
+     the forward launch of its largest level against
+     ``batched_strip_plain``, equal (``big_stage4_level``).
 Each main-path run prints, per stage, the kernels' summed milliseconds
 (CUDA events around every launch) beside the stage's wall time.
 The kernels line counts each kernel's launches over every main-path run
-(phases 5, 7, 8, 9 and 10, less the host-matched call of phase 5, which
-is a comparison; the fork and multihost workers and the bench report
+(phases 5, 7, 8, 9, 10 and 11, less the host-matched call of phase 5,
+which is a comparison; the fork and multihost workers and the bench report
 theirs) and
 gives each kernel's bound: the larger of its bytes over the card's memory rate and
 its operations over the card's int32 peak (SMs x 64 INT32 lanes x the SM
@@ -521,27 +553,32 @@ def fixed_main(dev):
 PAST_CTA = (2048, 1000)
 
 
-def main_path_hops():
-    """The (W, hb) of the chained stage-2 hops that the main paths issue on
-    the 1M pair, from the code that picks them: hb the flush interval of
-    the CLI's runs (``--ram-size 0 --disk-size 1G``) and of the bench's
-    full run (``JobConfig``'s defaults), W the window of a hop of that
-    height whose column clears it (``stages/core._hop_window``)."""
+def chained_hop(m, n, **limits):
+    """The (W, hb) of the chained stage-2 hops of a run on an m x n pair
+    at a JobConfig with ``limits``, from the code that picks them: hb the
+    flush interval, W the window of a hop of that height whose column
+    clears it (``stages/core._hop_window``)."""
     from masa_tpu_torch.core.job import Job, JobConfig
     from masa_tpu_torch.stages import core, pipeline
-    from masa_tpu_torch.tools.pairs import bench_pair
     from masa_tpu_torch.types import Crosspoint
 
-    m, n = map(len, bench_pair())
-    out = set()
     with tempfile.TemporaryDirectory() as tmp:
-        for limits in ({"ram_limit": 0, "disk_limit": 1 << 30}, {}):
-            job = Job(JobConfig(work_dir=tmp, **limits), device="cpu")
-            hb = job.calculate_flush_intervals(
-                m, n, align_to=pipeline.FLUSH_GRAIN)[0]
-            out.add((core._hop_window(Crosspoint(m, n, 0), m - hb, "auto"),
-                     hb))
-    return sorted(out)
+        job = Job(JobConfig(work_dir=tmp, **limits), device="cpu")
+        hb = job.calculate_flush_intervals(
+            m, n, align_to=pipeline.FLUSH_GRAIN)[0]
+    return core._hop_window(Crosspoint(m, n, 0), m - hb, "auto"), hb
+
+
+def main_path_hops():
+    """The (W, hb) of the chained stage-2 hops that the main paths issue on
+    the 1M pair (``chained_hop``): the CLI's runs (``--ram-size 0
+    --disk-size 1G``) and the bench's full run (``JobConfig``'s
+    defaults)."""
+    from masa_tpu_torch.tools.pairs import bench_pair
+
+    m, n = map(len, bench_pair())
+    return sorted({chained_hop(m, n, ram_limit=0, disk_limit=1 << 30),
+                   chained_hop(m, n)})
 
 
 def hop_phase(dev):
@@ -633,6 +670,324 @@ def hop_phase(dev):
     figures["hop"] = (cli["ms"]["hop"], cli["plain_ms"]["hop"],
                       cli["cells"]["hop"], cli["bytes"]["hop"])
     return err, err_hop, figures, timed
+
+
+def big_hops(size):
+    """(W, hb) of the chained stage-2 hops of ``tools/big_run.py``'s run at
+    ``size`` (``chained_hop`` at its JobConfig: the defaults, 64 GiB of disk
+    at 23M)."""
+    from masa_tpu_torch.tools import pairs
+
+    m = pairs.SIZES[size]
+    limits = {"disk_limit": 64 << 30} if size == "23M" else {}
+    return chained_hop(m, pairs.PADDED.get(size, m), **limits)
+
+
+def big_hop_phase(dev):
+    """Phase 2k: the stage-2 hops of the chromosome-scale runs.  The 5M
+    run's hop (``big_hops("5M")``, one launch of the hop kernel) timed by
+    ``hop_tune.timed`` on its planted inputs, its outputs held equal to
+    the plain versions' there.  Then one hop of the 23M run's shape
+    (``big_hops("23M")``: taller than a cluster holds, past 2^31 cells)
+    on a stretch of the 23M pair with a real entering state: stage 1 of
+    the pair's first 4 hb rows x 2 W columns through the strip kernel
+    (SW, the cut at row 3 hb kept; a local alignment ending in the
+    stretch's rows is the pair's own there), the crosspoint the best cell
+    of its last row; the hop from it through ``wavefront.hop_step``,
+    which must take ``hop_three`` (one launch each of hop_prep, kernel 1
+    and hop_match, no hop launch) and hit; its state and last row equal
+    to those of the three plain steps (``hop_prep_plain``,
+    ``strip_plain``, ``hop_match_plain``) on the same inputs, max |diff|
+    0.  The three launches timed (events around ``hop_three``, least of
+    3), the plain steps by the host clock once.  Launches made here are
+    comparisons, not the main path's.  Returns (max |diff| of the tall
+    hop, the 5M hop's ``hop_tune.timed``, the tall hop's figures)."""
+    import numpy as np
+    import torch
+
+    from masa_tpu_torch.ops import kernels, strips
+    from masa_tpu_torch.ops import wavefront as wf
+    from masa_tpu_torch.tools import hop_tune, pairs
+    from masa_tpu_torch.types import InitType, ScoreParams
+
+    P = ScoreParams()
+    kw = dict(match=P.match, mismatch=P.mismatch, gap_open=P.gap_open,
+              gap_ext=P.gap_ext)
+    W5, hb5 = big_hops("5M")
+    if kernels.hop_route(hb5, W5, dev) is None:
+        raise AssertionError(f"the 5M run's hop ({hb5} x {W5}) takes the "
+                             f"three launches")
+    t5 = hop_tune.timed(dev, pairs.SIZES["5M"], W5, hb5, iters=20)
+    log(f"hop at the 5M run's shape {hb5} x {W5} (one launch as "
+        f"{json.dumps(t5['geometry'])}): ms a launch back to back "
+        + json.dumps({k: round(v, 5) for k, v in t5["ms"].items()})
+        + "; plain ms " + json.dumps({k: round(v, 3) for k, v in
+                                      t5["plain_ms"].items()}))
+
+    W, hb = big_hops("23M")
+    if kernels.hop_route(hb, W, dev) is not None:
+        raise AssertionError(f"the 23M run's hop ({hb} x {W}) fits a "
+                             f"cluster: no three-launch hop to hold")
+    before = {k: c.launches for k, c in counters().items()}
+    s0, s1 = pairs.big_pair("23M")
+    ci, r, nj = 4 * hb, 3 * hb, 2 * W
+    a0, b0 = s0[:ci].copy(), s1[:nj].copy()
+    del s0, s1
+    zero = InitType.WITH_ZEROES
+    res = strips.run_partition(
+        wf.StripConfig(rows=1 << 22), torch.from_numpy(a0).to(dev),
+        torch.from_numpy(b0).to(dev), P, zero, zero, special_every=hb)
+    cj = int(np.argmax(res.last_h[1:])) + 1
+    score = int(res.last_h[cj])
+    cut_h, cut_f = (torch.from_numpy(x.astype(np.int32)).to(dev)
+                    for x in res.specials[r])
+    s0r = torch.from_numpy(a0[::-1].copy()).to(dev)
+    s1r = torch.from_numpy(b0[::-1].copy()).to(dev)
+    a = s0r[:ci - r]
+    st = torch.tensor([[cj, score, 0, 1], [0, 0, 0, 0]], dtype=torch.int32,
+                      device=dev)
+    taken = []
+    three = wf.hop_three
+
+    def spy(*args, **k):
+        out = three(*args, **k)
+        taken.append(out)
+        return out
+
+    at = {k: c.launches for k, c in counters().items()}
+    flags = []
+    with patched(wf, "hop_three", spy):
+        wf.hop_step(a, s1r, cut_h, cut_f, st[0], st[1], W, sw=True,
+                    flags=flags, **kw)
+    kernels.check_flags(torch.cat(flags).tolist())
+    ran = {k: c.launches - at[k] for k, c in counters().items()}
+    if len(taken) != 1 or ran != {"strip": 1, "batched_strip": 0, "hop": 0,
+                                  "hop_prep": 1, "hop_match": 1}:
+        raise AssertionError(f"the 23M hop did not take hop_three: "
+                             f"{len(taken)} calls, launches {ran}")
+    _, rev_h, rev_f = taken[0]
+    t0 = time.time()
+    b, bh, bf, ch, ce = wf.hop_prep_plain(s1r, st[0], W, hb, P.gap_open,
+                                          P.gap_ext)
+    out = wf.strip_plain(a, b, bh, bf, ch, ce, wf.HOP_CORNER, sw=False,
+                         **kw)
+    st_p = torch.empty(4, dtype=torch.int32, device=dev)
+    wf.hop_match_plain(cut_h, cut_f, out.bus_h, out.bus_f, st[0], st_p, W,
+                       hb, match=P.match, gap_open=P.gap_open,
+                       gap_ext=P.gap_ext, sw=True)
+    torch.cuda.synchronize(dev)
+    plain_ms = (time.time() - t0) * 1e3
+    err = max(int((x.long() - y.long()).abs().max())
+              for x, y in ((st[1], st_p), (rev_h, out.bus_h),
+                           (rev_f, out.bus_f)))
+    got = st[1].tolist()
+    if err or not got[3] or got[0] >= cj:
+        raise AssertionError(f"the 23M hop: {got} against the plain "
+                             f"steps' {st_p.tolist()}, max |diff| {err}")
+    _, ms = timed_best(3, wf.hop_three, a, s1r, cut_h, cut_f, st[0],
+                       st_p, W, sw=True, **kw)
+    for k, c in counters().items():
+        c.launches = before[k]
+    cells = hb * W
+    moved = hb + W + 8 * (W + 1) + 32  # a, the window, the cut, the states
+    log(f"hop at the 23M run's shape {hb} x {W} ({cells} cells, past 2^31) "
+        f"on a stretch of the 23M pair ({ci} x {nj}, the cut at row {r}): "
+        f"from ({cj}, {score}) to {got} through hop_three, equal to the "
+        f"three plain steps (state and last row, max |diff| 0); "
+        f"{ms:.3f} ms the three launches (least of 3), the plain steps "
+        f"{plain_ms:.1f} ms")
+    return err, t5, {"shape": {"hb": hb, "W": W}, "ms": ms,
+                     "plain_ms": plain_ms, "cells": cells, "bytes": moved,
+                     "state_in": [cj, score, 0, 1], "state_out": got}
+
+
+def big_launch_phase(dev):
+    """Phase 2l: stage 1's launch at the 5M run's shape against its plain
+    twin.  The 5M run (``runner`` at JobConfig's defaults) launches the
+    strip kernel on R rows (``strips.strip_height``: 307,200) x the whole
+    s1 (5,242,945 columns), a row flushed every hb (12,288), with pruning
+    inside the launch on the card's grid; here the rows of its last full
+    launch (the 17th of 18) of the 5M pair, with the launch's own
+    ``LaunchPrune`` (the partition's m and n, the rows above), from a zero
+    row and a zero left border (a local alignment's fresh top) and with a
+    best of n - 1 handed in (as a resumed stage 1 hands one): each
+    sub-strip keeps the band of its last rows-left columns (where the
+    pair's diagonal runs) and prunes the rest, writing -INF there into the
+    bus and its flushed rows up to the launch's last offsets.  Sampled
+    sub-strips, the first flush interval and every one from the interval
+    at the grid's size to the launch's end (the bus leaving it), are held
+    byte for byte against ``wavefront.strip_plain_pruned`` from the
+    launch's own flushed rows (``tools/strip_tune.check_pruned_span``).
+    A comparison: no launch here counts.  Returns (max |diff| (0: any
+    difference raises), a summary)."""
+    import numpy as np
+    import torch
+
+    from masa_tpu_torch import InitType, ScoreParams
+    from masa_tpu_torch.ops import kernels, strips
+    from masa_tpu_torch.ops import wavefront as wf
+    from masa_tpu_torch.stages import core
+    from masa_tpu_torch.tools import pairs, strip_tune
+
+    params = ScoreParams()
+    s0, s1 = pairs.big_pair("5M")
+    m, n = len(s0), len(s1)
+    _, hb = big_hops("5M")
+    R = strips.strip_height(core.default_config(dev), n, hb)
+    i0 = (m // R - 1) * R
+    a = torch.from_numpy(np.ascontiguousarray(s0[i0:i0 + R])).to(dev)
+    b = torch.from_numpy(s1).to(dev)
+    del s0, s1
+    bus_h, bus_f = wf.init_bus(InitType.WITH_ZEROES, n, params.gap_open,
+                               params.gap_ext, dev)
+    args = (a, b, bus_h, bus_f, torch.zeros(R, dtype=torch.int32, device=dev),
+            torch.full((R,), NEG, dtype=torch.int32, device=dev), 0)
+    kw = dict(match=params.match, mismatch=params.mismatch,
+              gap_open=params.gap_open, gap_ext=params.gap_ext, sw=True,
+              track_best=True)
+    lp = wf.LaunchPrune(m, n, i0, 0, torch.tensor([n - 1], device=dev))
+    saved = kernels.strip_cuda.launches
+    out, _, ms = timed_launch(1, kernels.strip_cuda, *args, **kw,
+                              flush_every=hb, prune=lp)
+    kernels.strip_cuda.launches = saved  # a comparison, no main path
+    rec = out[8]
+    first = rec.record[:, 0].tolist()
+    n_sub, per = len(first), hb // rec.rows
+    g0 = max(per, min(rec.blocks, n_sub - per) // per * per)
+    t0 = time.time()
+    for lo, hi in ((0, per), (g0, n_sub)):
+        strip_tune.check_pruned_span(args, out, lp, hb, lo, hi, kw)
+    twin_s = time.time() - t0
+    pruned = rec.pruned_cells(R)
+    res = dict(rows=R, cols=n, i0=i0, flush=hb, sub_strips=n_sub,
+               blocks=rec.blocks, checked=per + n_sub - g0, ms=ms,
+               cells=R * n - pruned, pruned_cells=pruned, twin_s=twin_s)
+    log(f"stage-1 launch at the 5M run's shape ({R} x {n}, rows {i0} on of "
+        f"the 5M pair, a row flushed every {hb}, pruning inside from a zero "
+        f"row with a best of {n - 1} handed in): {n_sub} sub-strips of "
+        f"{rec.rows} rows on {rec.blocks} blocks, {pruned} cells pruned "
+        f"({100 * pruned / (R * n):.2f}%), kernel {ms:.1f} ms; sub-strips "
+        f"0-{per - 1} (first columns kept {first[:per]}) and {g0}-"
+        f"{n_sub - 1} ({first[g0]} to {first[-1]}) equal the twin's from "
+        f"the launch's own rows, byte for byte ({twin_s:.1f} s)")
+    return 0, res
+
+
+def big_stage4_level(dev, cps3):
+    """Phase 11b: one level of the 5M run's stage 4 against its plain
+    version.  The engine (``ops/batched_mm``, at stage 4's stop of the
+    runner's JobConfig) runs on phase 11's stage-3 crosspoints of the 5M
+    pair with its element tables tapped; the forward launch of the level
+    with the most elements runs again through ``wavefront.batched_strip``
+    and ``batched_strip_plain`` on the same inputs, equal (tolerance 0).
+    A comparison: no launch here counts.  Returns (max |diff|, a
+    summary)."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from masa_tpu_torch import ScoreParams
+    from masa_tpu_torch.ops import batched_mm, kernels
+    from masa_tpu_torch.ops import wavefront as wf
+    from masa_tpu_torch.stages import pipeline
+    from masa_tpu_torch.tools import pairs
+
+    params = ScoreParams()
+    s0, s1 = pairs.big_pair("5M")
+    mps = max(16, math.isqrt(pipeline.PipelineConfig().max_cells_stage5))
+    tapped = []
+    saved = kernels.batched_strip_cuda.launches
+    batched_mm.reduce_partitions_batched(
+        s0, s1, cps3, params, mps, device=dev,
+        on_launches=lambda level, el_f, el_r, width: tapped.append(
+            (level, el_f, width)))
+    level, elems, width = max(tapped, key=lambda t: len(t[1]))
+    a, b = (torch.from_numpy(x).to(dev) for x in (s0, s1))
+    kw = dict(match=params.match, mismatch=params.mismatch,
+              gap_open=params.gap_open, gap_ext=params.gap_ext)
+    got, ms = timed(wf.batched_strip, a, b, elems, width, **kw)
+    kernels.batched_strip_cuda.launches = saved  # a comparison
+    want, plain_ms = timed(wf.batched_strip_plain, a, b, elems, width, **kw)
+    err = batched_diff(got, want, f"the 5M run's stage-4 level {level}")
+    cells = int((elems[:, 1].astype(np.int64) * elems[:, 3]).sum())
+    log(f"stage 4 of the 5M run rebuilt from its {len(cps3)} stage-3 "
+        f"crosspoints: {len(tapped)} levels; level {level} forward "
+        f"({len(elems)} elements, heights {int(elems[:, 1].min())}-"
+        f"{int(elems[:, 1].max())}, widths up to {width}, {cells} cells): "
+        f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, equal")
+    return err, dict(level=level, elements=len(elems), cells=cells, ms=ms,
+                     plain_ms=plain_ms)
+
+
+def big_run_phase(size="5M"):
+    """Phase 11: ``python -m masa_tpu_torch.tools.big_run 5M --fresh`` as
+    a user runs it, in a child process (its kernel counts start at 0
+    there): the 5M pair, 5,242,880 x 5,242,945, through
+    ``runner.align_job`` at JobConfig's defaults, in a work directory
+    under the temporary directory, removed afterwards.  Its lines are
+    echoed and its JSON line printed whole; it must score masa_tpu's
+    3984627 with stage 5 verified and stage 6 written, launch the strip
+    kernel in stage 1, the hop kernel in stage 2 (one launch a hop
+    issued, every hop of one launch) and the batched kernel in stage 4,
+    and no hop_prep or hop_match in any stage.  Returns its launches by
+    kernel, summed over the stages, and its stage-3 crosspoints."""
+    import torch
+
+    from masa_tpu_torch.core.job import CrosspointsFile
+    from masa_tpu_torch.tools import bench_spread, pairs
+
+    torch.cuda.empty_cache()  # the child's row cache takes half the free
+    with tempfile.TemporaryDirectory(prefix="masa_big_") as tmp:
+        work = os.path.join(tmp, "w")
+        r = bench_spread.run_child(
+            timeout=900, module="masa_tpu_torch.tools.big_run",
+            args=[size, "--fresh", "--work-dir", work])
+        written = os.path.exists(os.path.join(work, "alignment.00.txt"))
+        cps3 = CrosspointsFile(os.path.join(work, "crosspoints",
+                                            "crosspoint_03.00")).load() \
+            if r["rc"] == 0 else []
+    lines = r["lines"]
+    for line in lines[:-1]:
+        if "flushed row" not in line:
+            log(f"  big_run> {line}")
+    if r["rc"] != 0 or not lines:
+        raise AssertionError(f"big_run {size} exited {r['rc']}: "
+                             f"{r['stderr']}")
+    log(f"big_run line: {lines[-1]}")
+    got = json.loads(lines[-1])
+    marks = got["stage_end_marks_s"]
+    per = got["stage_launches"]
+    launches = {k: sum(v.get(k, 0) for v in per.values()) for k in COUNTED}
+    hops = got["hops"]
+    want = pairs.SCORES[size]
+    if got["score"] != want or got["reference_score"] != want:
+        raise AssertionError(f"big_run {size} scored {got['score']}, "
+                             f"masa_tpu {want}")
+    if not written or "stage5" not in marks or "stage6" not in marks:
+        raise AssertionError(f"big_run {size}: stage 5 or 6 did not "
+                             f"finish ({sorted(marks)}, alignment file "
+                             f"{written})")
+    if per["stage1"]["strip"] <= 0 or per["stage4"]["batched_strip"] <= 0:
+        raise AssertionError(f"big_run {size} launched no strip kernel in "
+                             f"stage 1 or no batched kernel in stage 4: "
+                             f"{per}")
+    if hops["issued"] <= 0 or per["stage2"]["hop"] != hops["issued"] \
+            or hops["three_launch"] or any(launches[k] for k in THREE):
+        raise AssertionError(f"big_run {size}: the hops issued were not one "
+                             f"hop launch each: {hops}, {per}")
+    t_prev, secs = 0.0, {}
+    for k in ("stage1", "stage2", "stage3", "stage4", "stage5", "stage6"):
+        secs[k] = round(marks[k] - t_prev, 2)
+        t_prev = marks[k]
+    log(f"big_run {size}: {got['m']} x {got['n']}, score {got['score']} "
+        f"(masa_tpu {want}) in {got['full_alignment_s']} s, seconds by "
+        f"stage {json.dumps(secs)}; {hops['issued']} hops of one launch; "
+        f"peak device memory {got['peak_device_bytes']} bytes, peak RSS "
+        f"{got['peak_rss_bytes']}, work directory at most "
+        f"{got['peak_work_dir_bytes']} bytes; the child's CPU seconds "
+        f"{json.dumps(r['child_cpu_s'])} in {r['wall_s']:.1f} s")
+    return launches, cps3
 
 
 def roofline_matrix(dev):
@@ -2103,7 +2458,10 @@ def main() -> int:
     n_fixed, err_fixed, *times["batched_strip_fixed"] = fixed_main(dev)
     err["batched_strip_fixed"] = max(err["batched_strip_fixed"], err_fixed)
     err_three, err["hop"], hop_times, hop_shapes = hop_phase(dev)
-    err["hop_prep"] = err["hop_match"] = err_three
+    err_tall, hop_5m, tall = big_hop_phase(dev)
+    hop_shapes[f"{hop_5m['shape']['hb']}x{hop_5m['shape']['W']}"] = hop_5m
+    err["hop_prep"] = err["hop_match"] = max(err_three, err_tall)
+    err["strip"] = max(err["strip"], err_tall, big_launch_phase(dev)[0])
     times.update(hop_times)
     kernels.event_log = []  # time every launch of the main-path runs
     golden_pairs()
@@ -2162,6 +2520,11 @@ def main() -> int:
     module_entry()
     for k, v in bench_phase(card).items():
         launches[k] += v
+    big_launches, cps3 = big_run_phase("5M")
+    for k, v in big_launches.items():
+        launches[k] += v
+    err["batched_strip"] = max(err["batched_strip"],
+                               big_stage4_level(dev, cps3)[0])
     launches["batched_strip_fixed"] = n_fixed
     launches["roofline"], roof, stage1_ms, (err_fill, *filling) = \
         roofline_phase(dev)
@@ -2284,6 +2647,14 @@ def main() -> int:
                 f"ms (no bound: {cols} + {hb} / {alpha} steps x {2 * alpha} "
                 f"dependent operations x {roof['ser_latency_ns']} ns); the "
                 f"three launches {t['ms']['three']:.4f} ms")
+    # the 23M run's hop, three launches past 2^31 cells, against the bound
+    # of its cells (NW, nothing tracked) and bytes
+    tall["bound_ms"], tall["bound_by"] = bound_of(
+        f"hop_three at the 23M run's hop {tall['shape']['hb']} x "
+        f"{tall['shape']['W']}", tall["ms"], tall["cells"], tall["bytes"],
+        rate["untracked"], old_rate, code_rate["untracked"])
+    for name in ("strip",) + THREE:
+        kernel_rows[list(KERNELS).index(name)]["tall_hop"] = tall
     kernel_rows[1]["stage4_launches"] = levels
     kernel_rows[0]["pruned_stage1"] = pruned1
     kernel_rows[0]["shapes"] = {

@@ -57,7 +57,7 @@ STATS_1 = ("flush_interval", "dev_rows", "dev_row_bytes", "dev_row_budget",
            "lazy_rows", "ram_rows", "ram_bytes", "disk_rows", "disk_bytes",
            "pruned_cells")
 STATS_2 = ("dev_matches", "host_matches", "window_reads", "window_bytes",
-           "chained", "segments", "chain_breaks", "issued")
+           "chained", "segments", "chain_breaks", "issued", "issued_three")
 
 # a stage's completion line, as the runner (stages/runner.py) and the
 # CLI's split and sharded modes print it: "stageN: ... in X.XXs" for

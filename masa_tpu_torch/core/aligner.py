@@ -131,6 +131,11 @@ class CUDAAligner(Aligner):
                                p.j0 + col_off + bj + 1, s)
             return not mgr.must_continue()
 
+        on_best = None
+        if iv and cfg.track_best and mgr.must_dispatch_row_bests():
+            def on_best(r, i, j, score):
+                mgr.dispatch_row_best(p.i0 + r, p.i0 + i, p.j0 + j, score)
+
         blocks = None
         if mgr.blocks_sink is not None:
             def blocks(rows_done, maxima):
@@ -168,6 +173,7 @@ class CUDAAligner(Aligner):
             best_in=mgr.best_in,
             on_special_row_dev=on_row_dev,
             on_special_row_lazy=on_row_lazy,
+            on_special_best=on_best,
             want_dev_last=dev_match,
         )
         self.stats.cells += res.cells
@@ -201,6 +207,7 @@ class CPUAligner(Aligner):
         sub1 = self._seq1[p.j0:p.j1]
         iv = mgr.get_special_row_interval()
         rows = tuple(range(iv, p.height + 1, iv)) if iv else ()
+        bests = {} if mgr.must_dispatch_row_bests() else None
         res = oracle.dp_rows(
             sub0, sub1, mgr.params, mgr.recurrence,
             mgr.get_first_row_init_type(), mgr.get_first_column_init_type(),
@@ -208,11 +215,15 @@ class CPUAligner(Aligner):
             first_col=mgr.receive_first_column(),
             special_rows=rows,
             row_bests=mgr.want_all_scores,
+            special_best=bests,
         )
         self.stats.cells += p.height * p.width
         self.stats.partitions += 1
         for r in sorted(res.specials):
             h, f = res.specials[r]
+            if bests and r in bests:
+                b, bi, bj = bests[r]
+                mgr.dispatch_row_best(p.i0 + r, p.i0 + bi, p.j0 + bj, b)
             mgr.dispatch_row(p.i0 + r, h[1:], f[1:])
         if mgr.must_dispatch_last_row():
             mgr.dispatch_last_row(p.i1, res.last_h, res.last_f)

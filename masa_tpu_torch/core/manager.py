@@ -198,6 +198,12 @@ class AlignerManager:
     def must_prune_blocks(self) -> bool:
         return self.block_pruning
 
+    def must_dispatch_row_bests(self) -> bool:
+        """Whether each special row goes with the best of the rows down
+        to it: where the store keeps them (``put_best``, a resumable
+        stage 1's) and scores are tracked."""
+        return self.track_best and hasattr(self.special_rows, "put_best")
+
     # --- border synthesis ----------------------------------------------
 
     def _col_borders(self, height: int):
@@ -245,6 +251,11 @@ class AlignerManager:
             self.special_rows.put(row, h_full, f_full)
         if self.goal_base_row is not None:
             self._match_goal(row, h_full, f_full)
+
+    def dispatch_row_best(self, row: int, i: int, j: int, score: int) -> None:
+        """The best (score at (i, j)) of the rows down to special row
+        ``row``, handed to the store before that row."""
+        self.special_rows.put_best(row, i, j, score)
 
     def dispatch_row_lazy(self, row: int, pull) -> None:
         """Lazy special-row delivery (ops/strips.RowPull): the border

@@ -83,10 +83,20 @@ def _configure(lib):
     ]
 
 
+_AVAILABLE = None
+
+
 def available() -> bool:
-    if os.environ.get("MASA_TPU_NO_NATIVE") or not shutil.which("g++"):
-        return False
-    return _load() is not None
+    """Whether the native helpers are in use, decided once a process:
+    stage 5 asks once a partition, and a ``shutil.which`` walk of PATH
+    each time cost more than its traceback on small partitions.  A
+    compiler that fails raises, and is asked again at the next call."""
+    global _AVAILABLE
+    if _AVAILABLE is None:
+        _AVAILABLE = (not os.environ.get("MASA_TPU_NO_NATIVE")
+                      and shutil.which("g++") is not None
+                      and _load() is not None)
+    return _AVAILABLE
 
 
 def load_fasta(path: str) -> tuple[str, np.ndarray]:

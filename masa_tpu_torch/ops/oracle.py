@@ -137,8 +137,10 @@ def dp_rows(
     first_col: tuple[np.ndarray, np.ndarray] | None = None,
     special_rows: tuple[int, ...] = (),
     row_bests: bool = False,
+    special_best: dict | None = None,
 ) -> RowsResult:
-    """Row-sweep DP in O(n) memory.
+    """Row-sweep DP in O(n) memory.  ``special_best`` (SW), a dict, gets
+    for each special row the best (score, i, j) of the rows down to it.
 
     Each row is computed with the lazy-E fixpoint: H is first formed without
     E, then E is derived from the prefix-max of (H + j*ext) and H re-maxed;
@@ -230,6 +232,8 @@ def dp_rows(
         out_col_e[i] = e_cur[n]
         if i in special_set:
             specials[i] = (h_cur.copy(), f_cur.copy())
+            if sw and special_best is not None:
+                special_best[i] = (best, best_i, best_j)
 
     if not sw:
         best, best_i, best_j = int(h_prev[n]), m, n

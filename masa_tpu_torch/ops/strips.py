@@ -184,6 +184,26 @@ def chunk_maxima(bus_h: torch.Tensor, ng: int) -> np.ndarray:
             .cpu().numpy().astype(np.int64))
 
 
+def prefix_bests(out, every: int, count: int, i0: int, col_off: int,
+                 above: torch.Tensor) -> torch.Tensor:
+    """(count, 3) int64 (score, i, j) on the strip's device: for each of
+    the strip's first ``count`` rows at multiples of ``every``, the best of
+    its rows down to that one (the strip's per-row captures, the earlier
+    row winning ties) folded with ``above`` (the best above the strip,
+    which wins ties); i and j in the partition, as ``run_partition``'s
+    best.  No host read."""
+    v, bj = out.best_v.long(), out.best_j.long()
+    rows = torch.arange(v.numel(), device=v.device)
+    # the larger value first, then the earlier row; values are > -2^31
+    key = torch.cummax(v * (1 << 32) + ((1 << 32) - 1 - rows), 0).values
+    key = key[torch.arange(1, count + 1, device=v.device) * every - 1]
+    score = key >> 32
+    row = (1 << 32) - 1 - (key & ((1 << 32) - 1))
+    cand = torch.stack([score, i0 + row + 1, col_off + bj[row] + 1], 1)
+    return torch.where((score > above[0]).unsqueeze(1), cand,
+                       above.expand_as(cand))
+
+
 def run_partition(
     cfg: wf.StripConfig,
     seq0,
@@ -205,6 +225,7 @@ def run_partition(
     best_in: int | None = None,
     on_special_row_dev: Callable | None = None,
     on_special_row_lazy: Callable | None = None,
+    on_special_best: Callable | None = None,
     want_dev_last: bool = False,
 ) -> PartitionResult:
     """Align one partition.  ``seq0``/``seq1`` are uint8 tensors or numpy
@@ -239,7 +260,10 @@ def run_partition(
     of every special row (int32 tensors of length n) before the row goes
     on; with ``on_special_row_lazy(dp_row, pull)`` the row goes on as a
     ``RowPull`` of those copies instead of host arrays.
-    ``want_dev_last`` returns the last row's bus as tensors in
+    ``on_special_best(dp_row, i, j, score)`` (with ``cfg.track_best``)
+    receives, before each special row goes on, the best of the rows down
+    to it (the earlier row, then column, of equal scores), read once a
+    strip.  ``want_dev_last`` returns the last row's bus as tensors in
     ``dev_last``."""
     seq1 = _as_chars(seq1)
     seq0 = _as_chars(seq0).to(seq1.device)
@@ -378,10 +402,15 @@ def run_partition(
                     rows_h, rows_f = neg(n_int, nj), neg(n_int, nj)
                     rows_h[:, wl:wr] = out.rows_h
                     rows_f[:, wl:wr] = out.rows_f
-        if rows_h is not None:
-            for q in range(rows_h.shape[0]):
-                emit_special(i0 + (q + 1) * special_every, rows_h[q],
-                             rows_f[q])
+        # the best down to each interior row: this strip's rows down to
+        # it, folded with the best above the strip (before the fold below)
+        row_best = None
+        if on_special_best is not None and rows_h is not None:
+            above = (dev_best if stop_check is None else torch.tensor(
+                [best, best_i, best_j], dtype=torch.int64, device=dev))
+            row_best = (above.expand(rows_h.shape[0], 3) if out is None
+                        else prefix_bests(out, special_every,
+                                          rows_h.shape[0], i0, wl, above))
 
         if out is not None and cfg.track_best and stop_check is None:
             # fold on the device; the earlier strip wins ties
@@ -402,6 +431,20 @@ def run_partition(
             skipped = out.prune.pruned_cells(hs, got[:-1])
             cells -= skipped
             pruned_cells += skipped
+        if on_special_best is not None:
+            # one read a strip: the interior rows' bests and the strip's
+            now = (dev_best if stop_check is None else torch.tensor(
+                [best, best_i, best_j], dtype=torch.int64, device=dev))
+            if row_best is not None:
+                now = torch.cat([row_best.reshape(-1), now])
+            bests = now.view(-1, 3).tolist()
+        if rows_h is not None:
+            for q in range(rows_h.shape[0]):
+                r = i0 + (q + 1) * special_every
+                if on_special_best is not None:
+                    b, bi, bj = bests[q]
+                    on_special_best(r, bi, bj, b)
+                emit_special(r, rows_h[q], rows_f[q])
         if cfg.store_lastcol:
             lch = out.lastcol_h.cpu().numpy()
             lce = out.lastcol_e.cpu().numpy()
@@ -414,6 +457,9 @@ def run_partition(
         if blocks_sink is not None:
             blocks_sink(i0, chunk_maxima(bus_h, ng))
         if special_every and i0 % special_every == 0 and i0 < m:
+            if on_special_best is not None:
+                b, bi, bj = bests[-1]
+                on_special_best(i0, bi, bj, b)
             emit_special(i0, bus_h, bus_f)
         if stop_check and out is not None and stop_check(out, i0, hs, wl):
             break

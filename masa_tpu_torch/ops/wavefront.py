@@ -122,6 +122,8 @@ class StripOut:
     rows_h: torch.Tensor | None = None   # (n_int, nj) int32
     rows_f: torch.Tensor | None = None
     prune: PruneRecord | None = None     # a pruning launch's decisions
+    best_v: torch.Tensor | None = None   # (h,) per-row captures: value,
+    best_j: torch.Tensor | None = None   # and the first j reaching it
 
 
 def merge_best(best_v: torch.Tensor, best_j: torch.Tensor) -> torch.Tensor:
@@ -142,7 +144,7 @@ def strip_out(bus_h, bus_f, best_v, best_j, last_h, last_e, rows_h,
     """A StripOut from raw outputs (per-row best captures merged)."""
     best = merge_best(best_v, best_j) if best_v is not None else None
     return StripOut(bus_h, bus_f, best, last_h, last_e, rows_h, rows_f,
-                    prune)
+                    prune, best_v, best_j)
 
 
 def _rows(a, b, hp, fp, ch, ce, up_left, *, match: int, mismatch: int,
@@ -821,27 +823,31 @@ def hop_three(a, s1r, cut_h, cut_f, st_in, st_out, W: int, *, match: int,
     """One hop on the card as three launches: ``kernels.hop_prep_cuda``,
     the strip kernel (NW, nothing tracked; its error flag appended to
     ``flags``) and ``kernels.hop_match_cuda``.  The route of a hop taller
-    than a cluster of ``kernels.hop_cuda`` holds.  Returns ``st_out``."""
+    than a cluster of ``kernels.hop_cuda`` holds.  Returns ``(st_out,
+    rev_h, rev_f)``, the hop's last row (W columns) swept by the strip
+    kernel, as ``hop_cuda`` returns it with ``last_row``."""
     hb = a.numel()
     b, bus_h, bus_f, col_h, col_e = kernels.hop_prep_cuda(
         s1r, st_in, W, hb, gap_open, gap_ext)
     out = strip(a, b, bus_h, bus_f, col_h, col_e, HOP_CORNER, match=match,
                 mismatch=mismatch, gap_open=gap_open, gap_ext=gap_ext,
                 sw=False, flags=flags)
-    return kernels.hop_match_cuda(cut_h, cut_f, out.bus_h, out.bus_f, st_in,
-                                  st_out, W, hb, match=match,
-                                  gap_open=gap_open, gap_ext=gap_ext, sw=sw)
+    kernels.hop_match_cuda(cut_h, cut_f, out.bus_h, out.bus_f, st_in,
+                           st_out, W, hb, match=match, gap_open=gap_open,
+                           gap_ext=gap_ext, sw=sw)
+    return st_out, out.bus_h, out.bus_f
 
 
 def hop_step(a, s1r, cut_h, cut_f, st_in, st_out, W: int, *, match: int,
              mismatch: int, gap_open: int, gap_ext: int, sw: bool,
-             flags: list | None = None):
+             flags: list | None = None, routes: list | None = None):
     """One stage-2 hop from the state ``st_in`` to ``st_out``, with no read
     on the host (the contract of ``hop_plain``).  CPU tensors run
     ``hop_plain``; CUDA tensors run ``kernels.hop_cuda``, one launch,
     where ``kernels.hop_route`` gives the hop's shape a cluster, else
     ``hop_three`` (the route follows the shape alone); the kernels' error
-    flags go to ``flags``.  Any other device raises."""
+    flags go to ``flags``, the route taken (``"plain"``, ``"one"`` or
+    ``"three"``) to ``routes``.  Any other device raises."""
     hb = a.numel()
     if not 1 <= W < s1r.numel() or hb < 1:
         raise ValueError(f"a hop of {hb} rows needs 1 <= W < "
@@ -849,13 +855,17 @@ def hop_step(a, s1r, cut_h, cut_f, st_in, st_out, W: int, *, match: int,
     kw = dict(match=match, mismatch=mismatch, gap_open=gap_open,
               gap_ext=gap_ext, sw=sw)
     args = (a, s1r, cut_h, cut_f, st_in, st_out, W)
+    routes = [] if routes is None else routes
     if s1r.device.type == "cpu":
+        routes.append("plain")
         return hop_plain(*args, **kw)[0]
     if s1r.device.type != "cuda":
         raise ValueError(f"no hop implementation for device {s1r.device}")
     geo = kernels.hop_route(hb, W, s1r.device)
     if geo is None:
-        return hop_three(*args, flags=flags, **kw)
+        routes.append("three")
+        return hop_three(*args, flags=flags, **kw)[0]
+    routes.append("one")
     return kernels.hop_cuda(*args, flags=flags, geometry=geo, **kw)[0]
 
 

@@ -211,7 +211,8 @@ class MarchStats:
     from chained segments (an endpoint hop is a segment of one), the
     segments and those that broke before their end, and the hops the
     segments issued on the device (those after a break, computed in vain,
-    among them)."""
+    among them), of which ``issued_three`` as the three launches of a hop
+    taller than a cluster (the route ``wavefront.hop_step`` took)."""
     dev_matches: int = 0
     host_matches: int = 0
     window_reads: int = 0
@@ -220,12 +221,14 @@ class MarchStats:
     segments: int = 0
     chain_breaks: int = 0
     issued: int = 0
+    issued_three: int = 0
 
     def text(self) -> str:
         return (f"matched on the device {self.dev_matches}, on the host "
                 f"{self.host_matches}; window reads {self.window_reads} "
                 f"({self.window_bytes} bytes); chained {self.chained} of "
-                f"{self.issued} issued in {self.segments} segments, "
+                f"{self.issued} issued ({self.issued_three} in three "
+                f"launches) in {self.segments} segments, "
                 f"{self.chain_breaks} broken")
 
 
@@ -606,12 +609,14 @@ def _run_segment(rows, cp: Crosspoint, W: int, seq0, params: ScoreParams,
                          dtype=torch.int32)
     flags: list = []
     ci = cp.i
+    routes: list = []
     for t, r in enumerate(rows):
         cut = dev_cache.get(r)
         wf.hop_step(s0r[m - ci:m - r], s1r, cut[0], cut[1], st[t],
                     st[t + 1], W, match=params.match,
                     mismatch=params.mismatch, gap_open=params.gap_open,
-                    gap_ext=params.gap_ext, sw=sw, flags=flags)
+                    gap_ext=params.gap_ext, sw=sw, flags=flags,
+                    routes=routes)
         ci = r
     got = torch.cat([st[1:].reshape(-1)] + flags).cpu().tolist()
     kernels.check_flags(got[4 * len(rows):])
@@ -633,6 +638,7 @@ def _run_segment(rows, cp: Crosspoint, W: int, seq0, params: ScoreParams,
         stats.dev_matches += done
         stats.chain_breaks += done < len(rows)
         stats.issued += len(rows)
+        stats.issued_three += routes.count("three")
     return done, len(rows)
 
 

@@ -87,20 +87,40 @@ class _OffsetStore:
     """Stage 1's row sink: translates partition-local row indices (a
     resumed stage 1 computes rows r0..m as 0..m-r0) to absolute ones,
     mirroring progress into the status file.  Stage 2 reads the partition
-    itself."""
+    itself.
 
-    def __init__(self, part, offset: int, job: Job):
+    Each special row goes into the status file before the partition:
+    its number, and the best of the rows down to it where the pass
+    tracks its best (``put_best``, called before the row), merged with
+    ``above``, the best a resumed stage 1 found there (the earlier of
+    equal scores kept, as one pass keeps it).  So a stage 1 resumed at
+    row r0 takes the rows above r0's best from the status file.
+    masa_tpu writes the best only when stage 1 ends, and a resumed stage
+    1 there forgets the rows above r0."""
+
+    def __init__(self, part, offset: int, job: Job, above=None):
         self.part = part
         self.offset = offset
         self.job = job
+        self.best = above
+
+    def put_best(self, r, i, j, score):
+        cand = (self.offset + i, j, score)
+        if self.best is None or (score, -cand[0], -j) > (
+                self.best[2], -self.best[0], -self.best[1]):
+            self.best = cand
 
     def put(self, r, h, f):
+        self._progress(r)
         self.part.put(self.offset + r, h, f)
-        self.job.status.update(last_special_row=self.offset + r)
 
     def put_lazy(self, r, lazy):
+        self._progress(r)
         self.part.put_lazy(self.offset + r, lazy)
-        self.job.status.update(last_special_row=self.offset + r)
+
+    def _progress(self, r):
+        self.job.status.update(last_special_row=self.offset + r,
+                               best=self.best)
 
     def finalize(self):
         self.part.finalize()
@@ -163,10 +183,11 @@ def stage1(job: Job, seq0: np.ndarray, seq1: np.ndarray,
     part = area.open_partition(0, 0) or area.create_partition(
         0, 0, m, n, row_init=row_init, col_init=col_init)
     r0 = part.last_row() or 0
-    store = _OffsetStore(part, r0, job)
-
     rec = pipeline._recurrence(pcfg.alignment_start)
     end = pipeline._effective_end(pcfg)
+    # the best of the rows down to r0 (written before each row)
+    above = tuple(job.status.best) if r0 else None
+    store = _OffsetStore(part, r0, job, above)
     want_lastcol = end in (AlignmentStart.SEQUENCE_1,
                            AlignmentStart.SEQUENCE_1_OR_2)
     first_row = first_col = None
@@ -241,7 +262,7 @@ def stage1(job: Job, seq0: np.ndarray, seq1: np.ndarray,
                      and rec == Recurrence.NEEDLEMAN_WUNSCH),
             device=job.device,
             # a resumed run's best, reached in the rows above r0
-            best_in=job.status.best[2] if r0 else None,
+            best_in=above[2] if r0 else None,
             dev_cache=job.runtime_dev_rows, lazy_rows=lazy_rows,
         )
     finally:
@@ -264,10 +285,13 @@ def stage1(job: Job, seq0: np.ndarray, seq1: np.ndarray,
                      f"  dev_row_budget: {cache.budget}\n")
 
     if rec == Recurrence.SMITH_WATERMAN and end == AlignmentStart.ANYWHERE:
-        best.add(r0 + res.best_i, res.best_j, res.best)
-        prev = job.status.best
-        if r0 and prev[2] > res.best:
-            best.add(*prev)
+        # the rows below r0 and those above it, the earlier of equal
+        # scores first, as one pass would have kept it
+        cands = [(r0 + res.best_i, res.best_j, res.best)]
+        if r0:
+            cands.append(above)
+        for i, j, s in sorted(cands, key=lambda c: (-c[2], c[0], c[1])):
+            best.add(i, j, s)
     else:
         ep = pipeline.select_endpoint(res, m - r0, n, end, rec)
         best.add(r0 + ep.i, ep.j, ep.score)

@@ -50,18 +50,20 @@ def cpu_seconds(who) -> tuple[float, float]:
     return r.ru_utime, r.ru_stime
 
 
-def run_child(timeout: float = 900) -> dict:
-    """``python -m masa_tpu_torch.bench`` in a child process with the
-    repository on its path: exit code, stdout lines, the end of stderr,
-    wall seconds, the child's CPU seconds (user, system), this process's
-    CPU seconds while it ran, and the load average before."""
+def run_child(timeout: float = 900, module: str = "masa_tpu_torch.bench",
+              args=()) -> dict:
+    """``python -m <module> <args>`` (the bench by default) in a child
+    process with the repository on its path: exit code, stdout lines, the
+    end of stderr, wall seconds, the child's CPU seconds (user, system),
+    this process's CPU seconds while it ran, and the load average
+    before."""
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     load = os.getloadavg()
     kids, me = cpu_seconds(resource.RUSAGE_CHILDREN), cpu_seconds(
         resource.RUSAGE_SELF)
     t0 = time.time()
-    r = subprocess.run([sys.executable, "-m", "masa_tpu_torch.bench"],
+    r = subprocess.run([sys.executable, "-m", module, *args],
                        cwd=REPO, env=env, capture_output=True, text=True,
                        timeout=timeout)
     wall = time.time() - t0

@@ -326,6 +326,42 @@ def test_pruned_partition_on_the_card(cuda, monkeypatch):
     assert got.cells + got.pruned_cells == len(s0) * len(s1)
 
 
+def test_special_row_bests_on_the_card(cuda, monkeypatch):
+    """``strips.run_partition``'s best down to each special row, from the
+    strip kernel's per-row captures (one launch, pruning inside it on 4
+    blocks, and without pruning), equals the oracle's, the earlier of two
+    equal bests (a 600-base repeat ending at rows 600 and 2600) kept."""
+    import functools
+
+    from masa_tpu_torch.ops import oracle, strips
+
+    rng = np.random.default_rng(1515)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    x, y, z = (rng.choice(bases, k).astype(np.uint8)
+               for k in (600, 1400, 1000))
+    z[:16] = y[:16]  # each copy of x extends alike
+    s0 = np.concatenate([x, y, x, z])
+    s1 = np.concatenate([x, rng.choice(bases, 2000).astype(np.uint8)])
+    want = {}
+    oracle.dp_rows(s0, s1, ScoreParams(), special_rows=tuple(
+        range(512, len(s0), 512)), special_best=want)
+    capped = functools.partial(kernels.strip_cuda, max_ctas=4)
+    capped.launches = 0
+    monkeypatch.setattr(kernels, "strip_cuda", capped)
+    for prune in (True, False):
+        got = {}
+        res = strips.run_partition(
+            wf.StripConfig(rows=1 << 20), torch.from_numpy(s0).to(cuda),
+            torch.from_numpy(s1).to(cuda), ScoreParams(), special_every=512,
+            prune=prune, on_special_row=lambda *a: None,
+            on_special_best=lambda r, i, j, b: got.setdefault(r, (b, i, j)))
+        assert got == want, prune
+        assert want[len(s0) // 512 * 512] == (res.best, res.best_i,
+                                              res.best_j)
+        assert res.best_i < 1000 and (res.pruned_cells > 0) == prune
+    assert capped.launches == 2
+
+
 def test_pruned_wrapper_refuses(cuda):
     """A pruning launch that the rule does not allow raises; so does a
     best handed in as anything but an int64 tensor on the card."""
@@ -776,12 +812,38 @@ def test_tall_hop_takes_three_launches(cuda, monkeypatch):
     monkeypatch.setattr(kernels, "hop_route", lambda *a: None)
     counts = [kernels.hop_prep_cuda.launches, kernels.hop_cuda.launches]
     got = torch.empty(4, dtype=torch.int32, device=cuda)
-    flags = []
-    wf.hop_step(a, s1r, cut_h, cut_f, st, got, 2048, flags=flags, **kw)
+    flags, routes = [], []
+    wf.hop_step(a, s1r, cut_h, cut_f, st, got, 2048, flags=flags,
+                routes=routes, **kw)
     kernels.check_flags(torch.cat(flags).tolist())
-    assert got.tolist() == want.tolist()
+    assert got.tolist() == want.tolist() and routes == ["three"]
     assert [kernels.hop_prep_cuda.launches, kernels.hop_cuda.launches] \
         == [counts[0] + 1, counts[1]]
+
+
+def test_hop_three_returns_its_last_row(cuda):
+    """``hop_three`` hands back the strip kernel's last row beside the
+    state, equal to ``hop_plain``'s with ``last_row``; the chromosome-scale
+    runs' hops take their routes on the card by shape: the 5M run's
+    (12,288 x 32,768) one launch, the 23M run's (72,704 x 262,144) the
+    three."""
+    assert kernels.hop_route(12288, 32768, cuda) is not None
+    assert kernels.hop_route(72704, 262144, cuda) is None
+    assert kernels.hop_route(65537, 131072, cuda) is None
+    kw = dict(match=1, mismatch=-3, gap_open=3, gap_ext=2, sw=True)
+    (a, s1r, cut_h, cut_f), st = hop_tune.planted(cuda, 1 << 16, 2048,
+                                                     1024)
+    want = torch.empty(4, dtype=torch.int32, device=cuda)
+    _, want_h, want_f = wf.hop_plain(a, s1r, cut_h, cut_f, st, want, 2048,
+                                     last_row=True, **kw)
+    got = torch.empty(4, dtype=torch.int32, device=cuda)
+    out, rev_h, rev_f = wf.hop_three(a, s1r, cut_h, cut_f, st, got, 2048,
+                                     **kw)
+    assert out is got and got.tolist() == want.tolist()
+    assert torch.equal(rev_h, want_h) and torch.equal(rev_f, want_f)
+    routes = []
+    wf.hop_step(a, s1r, cut_h, cut_f, st, got, 2048, routes=routes, **kw)
+    assert routes == ["one"] and got.tolist() == want.tolist()
 
 
 def test_hop_max_warps_mirror_the_kernel(cuda):

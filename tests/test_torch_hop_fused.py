@@ -239,16 +239,17 @@ def test_hop_step_on_the_cpu_runs_hop_plain(hop, monkeypatch):
     st = torch.tensor([PREFIX + CUT + HB + 37, 10 ** 6, 0, 1],
                       dtype=torch.int32)
     out = torch.empty(4, dtype=torch.int32)
+    routes = []
     assert wf.hop_step(*port_args(hop, True), st, out, W, sw=True,
-                       **KW) is out
-    assert calls == [False]
+                       routes=routes, **KW) is out
+    assert calls == [False] and routes == ["plain"]
     with pytest.raises(ValueError, match="W"):
         wf.hop_step(*port_args(hop, True), st, out, len(hop["s1"]),
                     sw=True, **KW)
 
 
 def three_steps(a, s1r, cut_h, cut_f, st_in, st_out, W, *, match, mismatch,
-                gap_open, gap_ext, sw, flags=None):
+                gap_open, gap_ext, sw, flags=None, routes=None):
     """A hop as the three plain steps, always swept: what hop_step ran on
     the CPU before the one launch."""
     hb = a.numel()

@@ -344,3 +344,43 @@ def test_chip_smoke_needs_a_cuda_device(tmp_path):
                        capture_output=True, text=True, timeout=300)
     assert r.returncode != 0
     assert _no_result(r.stdout)
+
+
+BLOCKED_BIG_RUN = r"""
+import runpy
+import sys
+
+class NoJax:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "masa_tpu"):
+            raise ImportError(f"{name} is blocked in this test")
+
+sys.meta_path.insert(0, NoJax())
+sys.argv = ["big_run"] + sys.argv[1:]
+from masa_tpu_torch.tools import pairs
+pairs.SIZES["23M"], pairs.PADDED["23M"] = 1024, 1300  # a small pair
+del pairs.SCORES["23M"]
+try:
+    runpy.run_module("masa_tpu_torch.tools.big_run", run_name="__main__")
+finally:
+    foreign = [m for m in sys.modules
+               if m.split(".")[0] in ("jax", "jaxlib", "masa_tpu")]
+    assert not foreign, foreign
+"""
+
+
+def test_big_run_runs_with_jax_blocked(tmp_path):
+    """``python -m masa_tpu_torch.tools.big_run`` (the chromosome-scale
+    tool, at --device cpu on a small padded pair) with ``import jax`` and
+    ``import masa_tpu`` made to fail: it runs the six stages and prints
+    its line; the AST walk above covers its source."""
+    assert os.path.join(REPO, "masa_tpu_torch", "tools", "big_run.py") \
+        in _port_sources()
+    r = subprocess.run(
+        [sys.executable, "-c", BLOCKED_BIG_RUN, "23M", "--device", "cpu",
+         "--work-dir", str(tmp_path / "w")],
+        cwd=REPO, env=_env(), capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    line = json.loads(r.stdout.splitlines()[-1])
+    assert line["n"] == 1300 and line["score"] > 0
+    assert "stage6" in line["stage_end_marks_s"]
