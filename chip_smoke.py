@@ -174,10 +174,27 @@ Phases (any failure raises and the run exits non-zero):
   11b. the 5M run's stage 4 rebuilt from phase 11's stage-3 crosspoints:
      the forward launch of its largest level against
      ``batched_strip_plain``, equal (``big_stage4_level``).
+  12. (after phase 11b) the randomized differential lanes of
+     ``masa_tpu_torch/tools/fuzz_soak.py`` (tests/test_fuzz_modes.py's
+     five) on the card, at seeds from FUZZ_SEED (``fuzz_cases``): tier a
+     at the reference's sizes, lane 1 cycling all 30 start/end mode pairs
+     under random scores; tier b at 4096 to 16384 a side with special rows
+     every 512 to 4096 (hops on a cluster of CTAs; on every other seed of
+     lanes 1, 2 and 5 kernels.hop_route is forced to None, so hop_prep
+     and hop_match run under NW and random scores).  Each lane holds its result to the
+     port's oracle (the crash lane kills align_job at a call drawn among
+     stage 1's row store, stage 2's passes and hops, stage 4 and stage 5,
+     and resumes it), and a pool of CPU processes runs the same cases
+     through the plain versions beside it: each card result must equal
+     its score, start and end, and in lanes 2 and 5 its stage-2
+     crosspoints (a digest, equal: stage 2 is exact, so the hops and the
+     three launches are held to the plain route at these shapes and
+     scores).  The strip, batched strip, hop, hop_prep
+     and hop_match kernels must each launch in the phase (``fuzz_phase``).
 Each main-path run prints, per stage, the kernels' summed milliseconds
 (CUDA events around every launch) beside the stage's wall time.
 The kernels line counts each kernel's launches over every main-path run
-(phases 5, 7, 8, 9, 10 and 11, less the host-matched call of phase 5,
+(phases 5, 7, 8, 9, 10, 11 and 12, less the host-matched call of phase 5,
 which is a comparison; the fork and multihost workers and the bench report
 theirs) and
 gives each kernel's bound: the larger of its bytes over the card's memory rate and
@@ -241,6 +258,7 @@ M_1M = 1 << 20
 SCORE_1M = 796634  # masa_tpu's full six-stage score on the 1M pair
 NEG = -999999999
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
+FUZZ_SEED = 20000  # phase 12's first seed: past the soak's default range
 
 
 def log(*a):
@@ -918,6 +936,155 @@ def big_stage4_level(dev, cps3):
         f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, equal")
     return err, dict(level=level, elements=len(elems), cells=cells, ms=ms,
                      plain_ms=plain_ms)
+
+
+def fuzz_cases():
+    """Phase 12's cases, (tier, lane, seed, keywords, three launches).
+    Tier a: the reference's sizes; lane 1 cycles the 30 start/end pairs.
+    Tier b: m and n of 4096 to 16384, special rows every 512 to 4096 (a
+    hop on a cluster of CTAs), lane 1 going over 14 of the 26 pairs the
+    row oracle can check; on every other tier-b seed of lanes 1, 2 and 5
+    the hops take the three launches.  Lane 3 stays at tier a: on the CPU
+    its slab traceback runs the dense oracle for a local march, minutes
+    at 4096 x 4096."""
+    from masa_tpu_torch.tools import fuzz_soak as fz
+
+    S = fz.S
+    pairs = [(a, b) for a in fz.STARTS for b in fz.ENDS]
+    cases = [("a", "pipeline_vs_oracle", FUZZ_SEED + k, {"modes": p}, False)
+             for k, p in enumerate(pairs)]
+    for name, count in (("stage4_differential", 3), ("sharded_vs_oracle", 6),
+                        ("oversize_weighted", 3), ("crash_resume", 4)):
+        cases += [("a", name, FUZZ_SEED + k, {}, False)
+                  for k in range(count)]
+    rows = [p for p in pairs if p[0] == S.ANYWHERE or p[1] != S.ANYWHERE]
+    for k in range(14):
+        big = k < 2
+        cases.append(("b", "pipeline_vs_oracle", FUZZ_SEED + 100 + k, {
+            "sizes": (12288, 16385) if big else (4096, 12289),
+            "flush": (2048, 4097) if big else (512, 2049),
+            "modes": rows[7 * k % len(rows)]}, k % 2 == 1))
+    for name, sizes in (("stage4_differential", (4096, 6000)),
+                        ("oversize_weighted", (4096, 8000)),
+                        # kills in stage 1 and in stage 2, on the hops
+                        ("crash_resume", (4096, 6000))):
+        cases += [("b", name, FUZZ_SEED + 100 + k, {"sizes": sizes},
+                   name != "oversize_weighted" and k == 1)
+                  for k in range(2)]
+    return cases
+
+
+def fuzz_phase():
+    """Phase 12: fuzz_soak's five lanes on the card (``device="cuda"``)
+    through the entry points a user calls (``align_pair``,
+    ``sharded_align``, ``align_oversize``, ``runner.align_job``, the
+    stage-4 reducers), at ``fuzz_cases``' seeds, each lane holding its
+    result to the port's oracle.  Meanwhile a pool of CPU processes runs
+    the same cases on the CPU (the plain versions: ``backend="kernel"``
+    where a lane takes one), and each card result must equal the CPU
+    lane's score, start, end and, in lanes 2 and 5, stage-2 crosspoints
+    (``fuzz_soak.digest``).  Fails on any mismatch, on a crash case
+    that did not crash, where a start/end pair was not run, where tier b
+    did not reach 4096 x 4096, and where strip, batched_strip, hop,
+    hop_prep or hop_match launched no time in the phase.  Prints per
+    lane and tier the seeds, the modes, the launches and the seconds.
+    Returns the phase's launches by kernel."""
+    import multiprocessing
+
+    from masa_tpu_torch.ops import kernels
+    from masa_tpu_torch.tools import fuzz_soak as fz
+
+    t0 = time.time()
+    cases = fuzz_cases()
+    workers = max(1, min(6, (os.cpu_count() or 2) - 2))
+    ctx = multiprocessing.get_context("spawn")
+    ex = concurrent.futures.ProcessPoolExecutor(
+        workers, mp_context=ctx, initializer=fz.pool_init)
+    try:
+        cpu = [ex.submit(fz.lane_record, name, seed, "cpu",
+                         **({"backend": "kernel"} if name in (
+                             "pipeline_vs_oracle", "stage4_differential",
+                             "crash_resume") else {}), **kw)
+               for _, name, seed, kw, _ in cases]
+        wrappers = counters()
+        for w in wrappers.values():
+            w.launches = 0
+        card, failures, groups = [], [], {}
+        for (tier, name, seed, kw, three), fut in zip(cases, cpu):
+            t = time.perf_counter()
+            route = (patched(kernels, "hop_route", lambda hb, W, dev: None)
+                     if three else contextlib.nullcontext())
+            try:
+                with route:
+                    rec = fz.lane_record(name, seed, "cuda", **kw)
+            except Exception as e:  # noqa: BLE001 - raised below, after all
+                rec = None
+                failures.append(f"{name} seed {seed} on the card: "
+                                f"{type(e).__name__}: {e}")
+            g = groups.setdefault((name, tier), {
+                "seeds": [], "modes": [], "seconds": 0.0,
+                "launches": dict.fromkeys(wrappers, 0)})
+            g["seeds"].append(seed)
+            g["seconds"] += time.perf_counter() - t
+            if rec is not None:
+                for k, v in rec["launches"].items():
+                    g["launches"][k] += v
+                rec["tier"], rec["three"] = tier, three
+                g["modes"].append("x".join(
+                    str(v) for v in rec.get("modes", ())) + (
+                    f"({rec['m']}x{rec['n']})"))
+            card.append(rec)
+        launches = {k: w.launches for k, w in wrappers.items()}
+        card_s = time.time() - t0
+        for (tier, name, seed, _, _), rec, fut in zip(cases, card, cpu):
+            try:
+                want = fut.result(timeout=600)
+            except Exception as e:  # noqa: BLE001 - raised below
+                failures.append(f"{name} seed {seed} on the CPU: "
+                                f"{type(e).__name__}: {e}")
+                continue
+            if rec is None:
+                continue
+            keys = ("skipped",) if "skipped" in want else ("score", "start",
+                                                           "end", "stage2")
+            got = [rec.get(k) for k in keys]
+            if got != [want.get(k) for k in keys]:
+                failures.append(f"{name} seed {seed}: the card gave "
+                                f"{dict(zip(keys, got))}, the CPU lane "
+                                f"{ {k: want.get(k) for k in keys} }")
+    finally:
+        ex.shutdown(wait=True, cancel_futures=True)
+    for (name, tier), g in groups.items():
+        log(f"fuzz {name} tier {tier}: seeds {g['seeds'][0]}.."
+            f"{g['seeds'][-1]} ({len(g['seeds'])}), "
+            f"{g['seconds']:.1f} s, launches " + json.dumps(g["launches"])
+            + "; cases " + " ".join(g["modes"]))
+    done = [r for r in card if r is not None]
+    seen = {tuple(r["modes"]) for r in done
+            if r["lane"] == "pipeline_vs_oracle" and r["tier"] == "a"}
+    if len(seen) != 30:
+        failures.append(f"{len(seen)} start/end pairs ran on the card, "
+                        f"not 30")
+    big = [r for r in done if r["tier"] == "b"
+           and r["lane"] == "pipeline_vs_oracle"]
+    if not big or min(min(r["m"], r["n"]) for r in big) < 4096:
+        failures.append("tier b did not reach 4096 x 4096")
+    crashes = [r for r in done if r["lane"] == "crash_resume"]
+    log("fuzz crash kills: " + "; ".join(
+        f"seed {r['seed']} ({r['m']}x{r['n']}) at {r['kill'][0]} call "
+        f"{r['kill'][1]}, rows lost {r['lost']}" for r in crashes))
+    idle = [k for k, v in launches.items() if v <= 0]
+    if idle:
+        failures.append(f"no launch of {idle} in the phase: {launches}")
+    secs = time.time() - t0
+    log(f"fuzz phase: {len(cases)} cases, {len(done)} on the card in "
+        f"{card_s:.1f} s, the CPU lanes on {workers} processes beside "
+        f"them; {secs:.1f} s in all; launches " + json.dumps(launches))
+    if failures:
+        for f in failures:
+            log(f"fuzz FAIL: {f}")
+        raise AssertionError(f"phase 12: {len(failures)} failures")
+    return launches
 
 
 def big_run_phase(size="5M"):
@@ -2525,6 +2692,8 @@ def main() -> int:
         launches[k] += v
     err["batched_strip"] = max(err["batched_strip"],
                                big_stage4_level(dev, cps3)[0])
+    for k, v in fuzz_phase().items():
+        launches[k] += v
     launches["batched_strip_fixed"] = n_fixed
     launches["roofline"], roof, stage1_ms, (err_fill, *filling) = \
         roofline_phase(dev)

@@ -788,6 +788,10 @@ def reverse_march(
                 r = 0
                 fh = row0_h.astype(np.int64)
                 ff = np.full(n + 1, NEG, np.int64)
+                if col_init == InitType.WITH_GAPS_OPENED:
+                    # a GAP_2 start: the vertical gap is open at the
+                    # corner, as the stored rows' synthesized F[0] is
+                    ff[0] = _border_f_value(col_init, 0, params)
             else:
                 dev_cut = dev_cache.get(r) if dev_cache is not None else None
                 window_viable = (dev_cut is None and _windowed_cut_ok(
