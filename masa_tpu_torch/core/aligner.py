@@ -20,6 +20,7 @@ from masa_tpu_torch.ops import oracle
 from masa_tpu_torch.types import MatchResult, Partition, Recurrence
 from masa_tpu_torch.ops import strips
 from masa_tpu_torch.ops import wavefront as wf
+from masa_tpu_torch.utils import trace
 
 
 @dataclasses.dataclass
@@ -126,7 +127,9 @@ class CUDAAligner(Aligner):
             mgr.dispatch_row(p.i0 + r, bus_h, bus_f)
 
         def stop(out, rows_done, strip_rows, col_off):
-            s, bi, bj = (int(v) for v in out.best.tolist())
+            with trace.span("wait"):
+                got = out.best.tolist()
+            s, bi, bj = (int(v) for v in got)
             mgr.dispatch_score(p.i0 + rows_done - strip_rows + bi + 1,
                                p.j0 + col_off + bj + 1, s)
             return not mgr.must_continue()

@@ -35,6 +35,7 @@ from masa_tpu_torch.types import (
     ScoreParams,
     StartType,
 )
+from masa_tpu_torch.utils import trace
 
 
 class LazyFullRow:
@@ -295,9 +296,11 @@ class AlignerManager:
         rev0h, rev0f = self._col_border(row)
         if self.reverse_f0 is not None:
             rev0f = self.reverse_f0
-        status, k, score = wf.goal_match_device(
+        verdict = wf.goal_match_device(
             dev_h, dev_f, bus_h, bus_f, cj, self.goal_score, rev0h, rev0f,
-            W1=W1, go=self.params.gap_open).tolist()
+            W1=W1, go=self.params.gap_open)
+        with trace.span("wait"):
+            status, k, score = verdict.tolist()
         if status == 4:
             mres = MatchResult(False, -1, 0, MatchType.ALIGNED)
         elif status in (0, 1):

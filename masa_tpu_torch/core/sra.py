@@ -37,6 +37,7 @@ import numpy as np
 
 from masa_tpu_torch.io.rowcodec import CODECS, decode_row, encode_row
 from masa_tpu_torch.ops.wavefront import decode_packed_row
+from masa_tpu_torch.utils import trace
 
 MAGIC = b"MSR2"
 MAGIC_V1 = b"MSR1"
@@ -67,17 +68,20 @@ def _write_file(dirpath: str, r: int, *parts) -> int:
     in order (tmp + rename, so a partial row never looks complete);
     returns the file's bytes."""
     tmp = _row_path(dirpath, r) + ".tmp"
-    with open(tmp, "wb") as fh:
-        for part in parts:
-            fh.write(part)
-    os.replace(tmp, _row_path(dirpath, r))
+    with trace.span("rows.write"):
+        with open(tmp, "wb") as fh:
+            for part in parts:
+                fh.write(part)
+        os.replace(tmp, _row_path(dirpath, r))
     return sum(memoryview(part).nbytes for part in parts)
 
 
 def write_row(dirpath: str, r: int, h: np.ndarray, f: np.ndarray,
               codec: str = "none") -> int:
+    with trace.span("rows.pack"):
+        body = encode_row(codec, h, f)
     return _write_file(dirpath, r, MAGIC + struct.pack(
-        "<Bqq", CODECS.index(codec), r, len(h)), encode_row(codec, h, f))
+        "<Bqq", CODECS.index(codec), r, len(h)), body)
 
 
 def write_row_packed(dirpath: str, r: int, lazy) -> int:

@@ -31,6 +31,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from masa_tpu_torch.utils import trace
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = {name: os.path.join(_PKG, "csrc", f"{name}.cu")
            for name in ("strip", "batched_strip", "roofline", "hop")}
@@ -337,7 +339,9 @@ def strip_cuda(a, b, bus_h, bus_f, col_h, col_e, corner: int, *,
     if flags is not None:
         flags.append(sync[-1:])
     else:
-        check_flags([int(sync[-1].item())])
+        with trace.span("wait"):
+            flag = int(sync[-1].item())
+        check_flags([flag])
     out = (out_h, out_f, best_v, best_j, last_h, last_e, rows_h, rows_f)
     if prune is None:
         return out
@@ -813,7 +817,9 @@ def hop_cuda(a, s1r, cut_h, cut_f, st_in, st_out, W: int, *, match: int,
     if flags is not None:
         flags.append(error)
     else:
-        check_flags([int(error.item())])
+        with trace.span("wait"):
+            flag = int(error.item())
+        check_flags([flag])
     return st_out, rev_h, rev_f
 
 

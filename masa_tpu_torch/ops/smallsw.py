@@ -24,6 +24,7 @@ import numpy as np
 
 from masa_tpu_torch.biology.alignment import Alignment
 from masa_tpu_torch.types import INF, CrosspointType, ScoreParams
+from masa_tpu_torch.utils import trace
 
 NEG = -INF
 
@@ -32,7 +33,8 @@ def _traceback_native(bindings, seq0, seq1, type_s, type_e, params,
                       alignment, pos0, pos1) -> int:
     """Native C++ constrained DP + run-length traceback (same tie-break
     preferences as the Python path: diagonal, then E, then F)."""
-    seg, ops = bindings.traceback_ops(seq0, seq1, type_s, type_e, params)
+    with trace.span("dp"):
+        seg, ops = bindings.traceback_ops(seq0, seq1, type_s, type_e, params)
     i = j = 0  # local consumed counts
     for code, length in ops:
         opened = bool(code & 4)
@@ -149,7 +151,8 @@ def traceback_segment(
         except ImportError:
             pass
 
-    H, E, F = constrained_dp(seq0, seq1, type_s, params)
+    with trace.span("dp"):
+        H, E, F = constrained_dp(seq0, seq1, type_s, params)
     go, ge = params.gap_open, params.gap_ext
 
     if type_e == CrosspointType.MATCH:

@@ -50,6 +50,7 @@ from masa_tpu_torch.models.scoring import border_cells
 from masa_tpu_torch.types import INF, InitType, Recurrence, ScoreParams
 from masa_tpu_torch.ops import kernels
 from masa_tpu_torch.ops import wavefront as wf
+from masa_tpu_torch.utils import trace
 
 # Device bytes the interior rows of one launch may hold (H and F, int32).
 FLUSH_ROWS_BYTES = 1 << 30
@@ -121,15 +122,17 @@ class RowPull:
         < nj, gathered on the device (the index by which a window of a
         disk row decodes alone)."""
         idx = torch.arange(0, self.nj, stride, device=self.dev_h.device)
-        return tuple(wf.gather_device(x, idx).cpu().numpy().astype(np.int64)
-                     for x in (self.dev_h, self.dev_f))
+        with trace.span("rows.pull"):
+            return tuple(wf.gather_device(x, idx).cpu().numpy()
+                         .astype(np.int64) for x in (self.dev_h, self.dev_f))
 
     def rows(self) -> tuple[np.ndarray, np.ndarray]:
         """(h, f) int32 host arrays of length nj (no border element)."""
-        if self._host is None:
-            self._copy_rows()
-        if self._done is not None:
-            self._done.synchronize()
+        with trace.span("rows.pull"):
+            if self._host is None:
+                self._copy_rows()
+            if self._done is not None:
+                self._done.synchronize()
         return self._host[0].numpy(), self._host[1].numpy()
 
     def _copy_rows(self) -> None:
@@ -180,8 +183,9 @@ def chunk_maxima(bus_h: torch.Tensor, ng: int) -> np.ndarray:
     the bus lies; ng ints come back."""
     pad = torch.full((ng * PRUNE_CHUNK - bus_h.numel(),), NEG,
                      dtype=bus_h.dtype, device=bus_h.device)
-    return (torch.cat([bus_h, pad]).view(ng, PRUNE_CHUNK).amax(1)
-            .cpu().numpy().astype(np.int64))
+    maxima = torch.cat([bus_h, pad]).view(ng, PRUNE_CHUNK).amax(1)
+    with trace.span("wait"):
+        return maxima.cpu().numpy().astype(np.int64)
 
 
 def prefix_bests(out, every: int, count: int, i0: int, col_off: int,
@@ -323,8 +327,9 @@ def run_partition(
         if on_special_row_lazy is not None:
             on_special_row_lazy(r, RowPull(h, f, side))
             return
-        bh = h.cpu().numpy().astype(np.int64)
-        bf = f.cpu().numpy().astype(np.int64)
+        with trace.span("rows.pull"):
+            bh = h.cpu().numpy().astype(np.int64)
+            bf = f.cpu().numpy().astype(np.int64)
         if on_special_row:
             on_special_row(r, bh, bf)
         else:
@@ -418,14 +423,17 @@ def run_partition(
             cand = torch.stack([s, i0 + bi + 1, wl + bj + 1])
             dev_best = torch.where(s > dev_best[0], cand, dev_best)
         elif out is not None and cfg.track_best:
-            s, bi, bj = (int(v) for v in out.best.tolist())
+            with trace.span("wait"):
+                got = out.best.tolist()
+            s, bi, bj = (int(v) for v in got)
             if s > best:
                 best, best_i, best_j = s, i0 + bi + 1, wl + bj + 1
         if out is not None and out.prune is not None:
             # one read a launch: the first columns each sub-strip kept, and
             # the best so far for the next launch's window
-            got = torch.cat([out.prune.record[:, 0].long(),
-                             dev_best[:1]]).cpu().numpy()
+            got = torch.cat([out.prune.record[:, 0].long(), dev_best[:1]])
+            with trace.span("wait"):
+                got = got.cpu().numpy()
             if stop_check is None:
                 best = int(got[-1])
             skipped = out.prune.pruned_cells(hs, got[:-1])
@@ -437,7 +445,8 @@ def run_partition(
                 [best, best_i, best_j], dtype=torch.int64, device=dev))
             if row_best is not None:
                 now = torch.cat([row_best.reshape(-1), now])
-            bests = now.view(-1, 3).tolist()
+            with trace.span("wait"):
+                bests = now.view(-1, 3).tolist()
         if rows_h is not None:
             for q in range(rows_h.shape[0]):
                 r = i0 + (q + 1) * special_every
@@ -446,8 +455,9 @@ def run_partition(
                     on_special_best(r, bi, bj, b)
                 emit_special(r, rows_h[q], rows_f[q])
         if cfg.store_lastcol:
-            lch = out.lastcol_h.cpu().numpy()
-            lce = out.lastcol_e.cpu().numpy()
+            with trace.span("wait"):
+                lch = out.lastcol_h.cpu().numpy()
+                lce = out.lastcol_e.cpu().numpy()
             col_h[i0 + 1:i0 + 1 + hs] = lch
             col_e[i0 + 1:i0 + 1 + hs] = lce
             if lastcol_writer is not None:
@@ -465,7 +475,9 @@ def run_partition(
             break
 
     if cfg.track_best and stop_check is None:
-        best, best_i, best_j = (int(v) for v in dev_best.tolist())
+        with trace.span("wait"):
+            got = dev_best.tolist()
+        best, best_i, best_j = (int(v) for v in got)
     last_h = last_f = None
     if want_last_row and not pad_rows:
         last_h = np.empty(nj + 1, np.int64)
@@ -473,8 +485,9 @@ def run_partition(
         last_h[0] = (stream_corner if first_col_reader is not None else
                      _border_vec(col_init, params, 1, i0, first_col)[0][0])
         last_f[0] = -INF
-        last_h[1:] = bus_h.cpu().numpy()
-        last_f[1:] = bus_f.cpu().numpy()
+        with trace.span("wait"):
+            last_h[1:] = bus_h.cpu().numpy()
+            last_f[1:] = bus_f.cpu().numpy()
     return PartitionResult(last_h=last_h, last_f=last_f, best=best,
                            best_i=best_i, best_j=best_j, col_h=col_h,
                            col_e=col_e, specials=specials, cells=cells,

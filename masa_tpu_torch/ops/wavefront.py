@@ -48,6 +48,7 @@ import torch
 
 from masa_tpu_torch.types import CrosspointType, INF, InitType, Recurrence
 from masa_tpu_torch.ops import kernels
+from masa_tpu_torch.utils import trace
 
 NEG = -INF
 # Columns per pruning chunk: the grain of the host's window between strips
@@ -926,22 +927,23 @@ def pull_row_delta_start(bus, nj: int, stream=None,
     until it has read them).  ``snapshot`` keeps a copy of the row for
     the escapes (masa_tpu's snapshot); a caller whose row is already its
     own passes False."""
-    row = bus[:nj].clone() if snapshot else bus
-    packed = delta_pack_device(row, nj)
-    if not packed.is_cuda:
-        return DeltaPull(packed, row, nj, None)
-    host = torch.empty(packed.shape, dtype=torch.uint8, pin_memory=True)
-    cur = torch.cuda.current_stream(packed.device)
-    side = stream if stream is not None else cur
-    if side != cur:
-        side.wait_stream(cur)
-    with torch.cuda.stream(side):
-        host.copy_(packed, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record(side)
-    if side != cur:
-        packed.record_stream(side)
-    return DeltaPull(host, row, nj, done)
+    with trace.span("rows.pack"):
+        row = bus[:nj].clone() if snapshot else bus
+        packed = delta_pack_device(row, nj)
+        if not packed.is_cuda:
+            return DeltaPull(packed, row, nj, None)
+        host = torch.empty(packed.shape, dtype=torch.uint8, pin_memory=True)
+        cur = torch.cuda.current_stream(packed.device)
+        side = stream if stream is not None else cur
+        if side != cur:
+            side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            host.copy_(packed, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(side)
+        if side != cur:
+            packed.record_stream(side)
+        return DeltaPull(host, row, nj, done)
 
 
 def delta_ready(handle: DeltaPull) -> bool:
@@ -955,13 +957,16 @@ def packed_row_host(handle: DeltaPull):
     values (int64), gathered from the row on its device now, so that the
     result decodes with no device (``decode_packed_row``)."""
     if handle.done is not None:
-        handle.done.synchronize()
-    u = handle.packed.numpy()
-    mark = _escapes(u, handle.nj)
-    exact = np.empty(0, np.int64)
-    if len(mark):
-        idx = torch.from_numpy(mark).to(handle.row.device)
-        exact = gather_device(handle.row, idx).cpu().numpy().astype(np.int64)
+        with trace.span("rows.pull"):
+            handle.done.synchronize()
+    with trace.span("rows.escapes"):
+        u = handle.packed.numpy()
+        mark = _escapes(u, handle.nj)
+        exact = np.empty(0, np.int64)
+        if len(mark):
+            idx = torch.from_numpy(mark).to(handle.row.device)
+            exact = (gather_device(handle.row, idx).cpu().numpy()
+                     .astype(np.int64))
     return u, mark, exact
 
 

@@ -41,7 +41,6 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import os
-import time
 import zipfile
 
 import numpy as np
@@ -51,6 +50,7 @@ from masa_tpu_torch.ops import kernels
 from masa_tpu_torch.ops import wavefront as wf
 from masa_tpu_torch.parallel.mesh import Mesh, gather_objects, world
 from masa_tpu_torch.types import INF, InitType, Recurrence, ScoreParams
+from masa_tpu_torch.utils import trace
 
 NEG = -INF
 # Strip height R.  On the CPU masa_tpu's scan default (WavefrontConfig():
@@ -432,15 +432,10 @@ def _sharded_run(
         acc_fc_h = np.zeros((D, fc_len), np.int32)
         acc_fc_e = np.zeros((D, fc_len), np.int32)
 
-    trace = os.environ.get("MASA_SHARDED_TRACE")
     for r0 in range(r_start, rounds, c):
-        t_ch = time.time()
         for r in range(r0, min(r0 + c, rounds)):
             pipe.run_round(r)
         rows, cols = pipe.take_emissions()
-        if trace:
-            print(f"    [sharded] chunk r0={r0}/{rounds} c={c}: "
-                  f"{time.time() - t_ch:.2f}s", flush=True)
         for d, s, h, e in cols:
             if sink is None:
                 acc_fc_h[d][s * R:(s + 1) * R] = h
@@ -710,52 +705,43 @@ def sharded_align(
 
     dev = mesh.devices[0]
     cfg = cfg or default_config(dev)
-    trace = os.environ.get("MASA_SHARDED_TRACE")
-    t0 = time.time()
-    t_stage = time.perf_counter()
+    run = trace.stage_runner(dev, on_stage)
 
-    def mark(name, label, out):
-        nonlocal t_stage
-        if trace:
-            print(f"    [sharded] {label}: {time.time() - t0:.2f}s",
-                  flush=True)
-        if on_stage:
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            now = time.perf_counter()
-            on_stage(name, now - t_stage, out)
-            t_stage = now
-
-    full = sharded_stage1_full(seq0, seq1, mesh, cfg, params, prune,
-                               flush_stride, state_dir=state_dir)
-    mark("stage1", "stage1", full)
+    full = run("stage1", sharded_stage1_full, seq0, seq1, mesh, cfg, params,
+               prune, flush_stride, state_dir=state_dir)
     # the slab marchers: the host oracle on the CPU (masa_tpu's scan
     # backend), the strip kernel at this pipeline's strip height on CUDA
-    tb_backend = "numpy" if dev.type == "cpu" else "auto"
-    if traceback == "speculative":
-        cps, _reused = split.speculative_traceback(
-            seq0, seq1, full.parts, params, backend=tb_backend, cfg=cfg,
-            device=dev)
-    else:
-        cps = split.pipelined_traceback(seq0, seq1, full.parts, params,
-                                        backend=tb_backend, cfg=cfg,
-                                        device=dev)
-    mark("stage2", f"stage2 ({len(cps)} crosspoints)", cps)
+    kw = dict(backend="numpy" if dev.type == "cpu" else "auto", cfg=cfg,
+              device=dev)
+
+    def march():
+        if traceback == "speculative":
+            return split.speculative_traceback(seq0, seq1, full.parts,
+                                               params, **kw)[0]
+        return split.pipelined_traceback(seq0, seq1, full.parts, params,
+                                         **kw)
+
+    cps = run("stage2", march)
     pcfg = pipeline.PipelineConfig(
         params=params, max_cells_stage5=max_cells_stage5, device=str(dev))
-    cps = pipeline.stage3_densify(
-        seq0, seq1, pcfg, cps,
-        max_cells=split.densify_limit(max_partition, dev))
-    mark("stage3", "stage3", cps)
-    if max_partition:
-        cps = mm.stage4_reduce(seq0, seq1, cps, params, max_partition,
-                               stage5_max_cells=max_cells_stage5,
-                               device=dev)
-    mark("stage4", f"stage4 ({len(cps)} crosspoints)", cps)
-    aln = pipeline.stage5_emit(seq0, seq1, pcfg, cps)
-    mark("stage5", "stage5", aln)
-    stage6.recheck(aln, seq0, seq1, params)
-    mark("stage6", "stage5+6", aln)
+    cps = run("stage3", pipeline.stage3_densify, seq0, seq1, pcfg, cps,
+              max_cells=split.densify_limit(max_partition, dev))
+
+    def reduce():
+        if not max_partition:
+            return cps
+        return mm.stage4_reduce(seq0, seq1, cps, params, max_partition,
+                                stage5_max_cells=max_cells_stage5,
+                                device=dev)
+
+    cps = run("stage4", reduce)
+    aln = run("stage5", pipeline.stage5_emit, seq0, seq1, pcfg, cps)
+
+    def recheck():
+        stage6.recheck(aln, seq0, seq1, params)
+        return aln
+
+    run("stage6", recheck)
     if aln.raw_score != full.best:
         raise RuntimeError(
             f"sharded alignment score {aln.raw_score} != stage-1 best "

@@ -40,6 +40,7 @@ from masa_tpu_torch.ops import myers_miller as mm
 from masa_tpu_torch.ops import strips
 from masa_tpu_torch.ops import wavefront as wf
 from masa_tpu_torch.stages import core, pipeline, stage6
+from masa_tpu_torch.utils import trace
 from masa_tpu_torch.utils.devices import resolve_device
 
 NEG = -INF
@@ -545,19 +546,8 @@ def align_oversize(
     ``densify_limit``.  ``on_stage(name, seconds, result)``, when given,
     is called as each stage ends (as in ``pipeline.align_pair``).
     Returns (best, alignment)."""
-    import time
-
     dev = resolve_device(device)
-
-    def run(name, fn, *args, **kw):
-        t0 = time.perf_counter()
-        out = fn(*args, **kw)
-        if on_stage:
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            on_stage(name, time.perf_counter() - t0, out)
-        return out
-
+    run = trace.stage_runner(dev, on_stage)
     m = len(seq0)
     nparts = -(-len(seq1) // max_width)
     points = split_points(len(seq1), [1.0] * nparts)

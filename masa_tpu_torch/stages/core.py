@@ -51,6 +51,7 @@ from masa_tpu_torch.core.aligner import CPUAligner, CUDAAligner
 from masa_tpu_torch.core.manager import AlignerManager
 from masa_tpu_torch.ops import kernels, strips
 from masa_tpu_torch.ops import wavefront as wf
+from masa_tpu_torch.utils import trace
 
 NEG = -INF
 
@@ -618,7 +619,9 @@ def _run_segment(rows, cp: Crosspoint, W: int, seq0, params: ScoreParams,
                     gap_ext=params.gap_ext, sw=sw, flags=flags,
                     routes=routes)
         ci = r
-    got = torch.cat([st[1:].reshape(-1)] + flags).cpu().tolist()
+    got = torch.cat([st[1:].reshape(-1)] + flags)
+    with trace.span("wait"):
+        got = got.cpu().tolist()
     kernels.check_flags(got[4 * len(rows):])
     done = 0
     for r, t in zip(rows, range(0, 4 * len(rows), 4)):

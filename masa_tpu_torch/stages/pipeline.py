@@ -15,10 +15,8 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-import time
 
 import numpy as np
-import torch
 
 from masa_tpu_torch.biology.alignment import (
     ALIGNMENT_METHOD_GLOBAL,
@@ -38,6 +36,7 @@ from masa_tpu_torch.types import (
 from masa_tpu_torch.ops import myers_miller as mm
 from masa_tpu_torch.ops import wavefront as wf
 from masa_tpu_torch.stages import core
+from masa_tpu_torch.utils import trace
 from masa_tpu_torch.utils.devices import resolve_device
 
 
@@ -267,6 +266,7 @@ def stage5_emit(
     aln.end = [end.i, end.j]
     total = 0
     for c0, c1 in zip(cps, cps[1:]):
+        trace.count("partitions")
         sub0 = np.ascontiguousarray(seq0[c0.i:c1.i])
         sub1 = np.ascontiguousarray(seq1[c0.j:c1.j])
         seg = smallsw.traceback_segment(sub0, sub1, c0.i, c0.j, c0.type,
@@ -302,17 +302,7 @@ def align_pair(
     host-clock time up to a device sync; ``stats`` counts stage 2's
     matches and window reads."""
     pcfg = pcfg or PipelineConfig()
-    dev = resolve_device(pcfg.device)
-
-    def run(name, fn, *args):
-        t0 = time.perf_counter()
-        out = fn(*args)
-        if on_stage:
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            on_stage(name, time.perf_counter() - t0, out)
-        return out
-
+    run = trace.stage_runner(resolve_device(pcfg.device), on_stage)
     res, endpoint = run("stage1", stage1_pass, seq0, seq1, pcfg)
     cps = run("stage2", stage2_march, seq0, seq1, pcfg, endpoint,
               res.specials, res.dev_cache, stats)

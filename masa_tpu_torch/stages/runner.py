@@ -19,6 +19,7 @@ device."""
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 import time
 
@@ -43,6 +44,7 @@ from masa_tpu_torch.utils.timer import RecurrentTimer, Timer
 from masa_tpu_torch.core.job import Job
 from masa_tpu_torch.ops import myers_miller as mm
 from masa_tpu_torch.stages import core, pipeline
+from masa_tpu_torch.utils import trace
 
 STAGE_1, STAGE_2, STAGE_3, STAGE_4, STAGE_5, STAGE_6 = range(1, 7)
 
@@ -158,6 +160,18 @@ def _end_autosave(cpf) -> None:
         cpf._fh = None
 
 
+def _stage(fn):
+    """A stage function (the job first) run inside its stage's trace
+    span on the job's device (``utils/trace.stage``)."""
+    @functools.wraps(fn)
+    def run(job, *args, **kw):
+        with trace.stage(fn.__name__, job.device):
+            return fn(job, *args, **kw)
+
+    return run
+
+
+@_stage
 def stage1(job: Job, seq0: np.ndarray, seq1: np.ndarray,
            kernel_cfg=None, log=print) -> BestScoreList:
     """Forward pass over the whole matrix with persisted special rows;
@@ -316,6 +330,7 @@ def stage1(job: Job, seq0: np.ndarray, seq1: np.ndarray,
     return best
 
 
+@_stage
 def stage2(job: Job, seq0: np.ndarray, seq1: np.ndarray, aln_id: int = 0,
            kernel_cfg=None, log=print) -> list[Crosspoint]:
     """Reverse goal-score marching at the stage-1 special rows
@@ -389,6 +404,7 @@ def stage3_max_cells(job: Job) -> int | None:
     return {"batched": 1 << 62, "native": 1 << 30}.get(engine)
 
 
+@_stage
 def stage3(job: Job, seq0: np.ndarray, seq1: np.ndarray, aln_id: int = 0,
            kernel_cfg=None, log=print) -> list[Crosspoint]:
     """Recursive densification inside partitions (sw_stage3.cpp:264);
@@ -429,6 +445,7 @@ def stage3(job: Job, seq0: np.ndarray, seq1: np.ndarray, aln_id: int = 0,
     return cps
 
 
+@_stage
 def stage4(job: Job, seq0: np.ndarray, seq1: np.ndarray, aln_id: int = 0,
            strategy=None, log=print) -> list[Crosspoint]:
     """Myers-Miller mid-splitting until <= maximum-partition
@@ -458,6 +475,7 @@ def stage4(job: Job, seq0: np.ndarray, seq1: np.ndarray, aln_id: int = 0,
     return cps
 
 
+@_stage
 def stage5(job: Job, seq0: np.ndarray, seq1: np.ndarray,
            sequences: list[Sequence] | None = None, aln_id: int = 0,
            log=print) -> balign.Alignment:
@@ -473,6 +491,7 @@ def stage5(job: Job, seq0: np.ndarray, seq1: np.ndarray,
     return aln
 
 
+@_stage
 def stage6(job: Job, seq0: np.ndarray, seq1: np.ndarray,
            aln: balign.Alignment, aln_id: int = 0, fmt: str = "text",
            log=print) -> str:

@@ -1,0 +1,6 @@
+"""Hops: the seconds a pair the host waits on the card in stage 2, by the
+program's own spans (a read of a result or of a row)."""
+
+from masabench.program import WAITS, span_s
+
+read = span_s("stage2", WAITS)
