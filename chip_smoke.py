@@ -7,8 +7,8 @@ of its stage-4 launches, for ``tools/batched_tune.py --tables``).
 
 Phases (any failure raises and the run exits non-zero):
   1. the card's name and power limit; build csrc/strip.cu,
-     csrc/batched_strip.cu, csrc/roofline.cu and csrc/hop.cu with nvcc,
-     one process each, all started together;
+     csrc/batched_strip.cu, csrc/roofline.cu, csrc/hop.cu and
+     csrc/traceback.cu with nvcc, one process each, all started together;
   2. each kernel against its plain PyTorch version on the card, exact
      integer equality.  The strip kernel: SW/NW x four border types x full
      and partial heights x flush on/off x best/last-column tracking x odd
@@ -39,6 +39,11 @@ Phases (any failure raises and the run exits non-zero):
      time), outputs held equal to the plain versions'; the device delta
      packing against its plain form (the same row on the CPU), and one
      row of 2^20 pulled to the host as int32 and packed, timed;
+  2m. stage 5's batched traceback kernel (csrc/traceback.cu) against its
+     plain version and the native call at every degenerate and main-path
+     shape and state; the 1M self-pair's stage 5 on the card and on the
+     host, byte for byte the same alignment file; the kernel timed against
+     its bound (``traceback_phase``);
   3. the golden real pairs through masa_tpu_torch.align(device="cuda"):
      real1 must score 11367 ending at (16384, 15805), real2 32466;
   4. the bench.py 1M x 1M homologous pair through the six pipeline stages
@@ -249,9 +254,13 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces, or the code)
                  "masa_tpu/ops/wavefront.py:1216"),  # hop_step_device
     "hop_match": ("masa_tpu_torch/csrc/hop.cu",
                   "masa_tpu/ops/wavefront.py:1171"),  # goal_match_device
+    # no TPU kernel: masa_tpu's stage 5 is a native host call a partition
+    "traceback": ("masa_tpu_torch/csrc/traceback.cu",
+                  "masa_tpu/ops/smallsw.py:112"),  # traceback_segment
 }
 # the wrappers whose launches the main-path runs count
-COUNTED = ("strip", "batched_strip", "hop", "hop_prep", "hop_match")
+COUNTED = ("strip", "batched_strip", "hop", "hop_prep", "hop_match",
+           "traceback")
 # the route of each: the one-launch hop, or the three launches
 THREE = ("hop_prep", "hop_match")
 M_1M = 1 << 20
@@ -270,6 +279,16 @@ def counters():
     from masa_tpu_torch.ops import kernels
 
     return {k: getattr(kernels, f"{k}_cuda") for k in COUNTED}
+
+
+def stage5_partitions():
+    """Stage 5's partitions so far and those of them the card took, as the
+    port's trace counts them (``partitions``, ``partitions.card``; only
+    while ``kernels.event_log`` is a list), over every stage."""
+    from masa_tpu_torch.utils import trace
+
+    return tuple(sum(v for (_, n), v in trace.counts.items() if n == name)
+                 for name in ("partitions", "partitions.card"))
 
 
 def card_line() -> str:
@@ -780,7 +799,8 @@ def big_hop_phase(dev):
     kernels.check_flags(torch.cat(flags).tolist())
     ran = {k: c.launches - at[k] for k, c in counters().items()}
     if len(taken) != 1 or ran != {"strip": 1, "batched_strip": 0, "hop": 0,
-                                  "hop_prep": 1, "hop_match": 1}:
+                                  "hop_prep": 1, "hop_match": 1,
+                                  "traceback": 0}:
         raise AssertionError(f"the 23M hop did not take hop_three: "
                              f"{len(taken)} calls, launches {ran}")
     _, rev_h, rev_f = taken[0]
@@ -1649,6 +1669,155 @@ def golden_pairs():
             raise AssertionError(f"{name}: expected {score} at {end}")
 
 
+def traceback_phase(dev):
+    """Phase 2m: stage 5's batched traceback (csrc/traceback.cu).  The
+    kernel against its plain version and the native call on partitions of
+    every degenerate and main-path shape in all nine start and end states;
+    then the 1M self-pair (2^20 random bases against themselves, the
+    benchmark's pair) through stages 1, 2 and 4 on the card as the CLI runs
+    them (stage 3 passed through, stage 4 down to 512 a side), and its
+    stage 5 on the card and on the host: every partition must go to the
+    card and both must give the same score, statistics, gap lists and
+    CGFF bytes, and the port's ``partitions.card`` counter must count
+    every partition.  The kernel is timed alone at those partitions (the
+    least of four calls by its launch events) against its bound: seven
+    INT32-lane instructions a cell (three add-max and a max, three
+    compares for the cell's bits) over the card's int32 peak (132 SMs x 64
+    lanes x 1980 MHz); then the kernel and the plain version on a wave of
+    them (a partition an SM).  Returns (max abs err, (ms, plain ms, cells,
+    bytes)) of the wave."""
+    import numpy as np
+    import torch
+
+    from masa_tpu_torch.biology import alignment as balign
+    from masa_tpu_torch.native import bindings
+    from masa_tpu_torch.ops import kernels, smallsw
+    from masa_tpu_torch.ops import myers_miller as mm
+    from masa_tpu_torch.stages import pipeline
+    from masa_tpu_torch.types import ScoreParams
+
+    params = ScoreParams()
+    rng = np.random.default_rng(23)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    err = 0
+    for h, w in ((0, 9), (9, 0), (1, 300), (300, 1), (137, 136), (512, 512),
+                 (64, 4096), (4096, 64)):
+        s0 = rng.choice(bases, h).astype(np.uint8)
+        s1 = np.resize(s0, w) if h else rng.choice(bases, w)
+        s1 = s1.astype(np.uint8)
+        flip = rng.random(w) < 0.15
+        s1[flip] = rng.choice(bases, int(flip.sum()))
+        items = np.array([(0, h, 0, w, ts, te) for ts in range(3)
+                          for te in range(3)], np.int64)
+        got = smallsw.traceback_decode(smallsw.traceback_batch(
+            torch.from_numpy(s0).to(dev), torch.from_numpy(s1).to(dev),
+            items, params).cpu().numpy(), items[:, 1:4:2])
+        plain = smallsw.traceback_decode(smallsw.traceback_plain(
+            torch.from_numpy(s0), torch.from_numpy(s1), items,
+            params).numpy(), items[:, 1:4:2])
+        for (_, _, _, _, ts, te), (seg, ops), (pseg, pops) in zip(
+                items, got, plain):
+            try:
+                want = bindings.traceback_ops(s0, s1, ts, te, params)
+            except RuntimeError:
+                want = None
+            same = (seg == pseg and (ops is None) == (pops is None)
+                    == (want is None) and (ops is None or (
+                        np.array_equal(ops, pops) and seg == want[0]
+                        and np.array_equal(ops, want[1]))))
+            if not same:
+                err = max(err, abs(seg - pseg), 1)
+                log(f"traceback: {h} x {w} states {ts}{te}: kernel {seg}, "
+                    f"plain {pseg}, native {want and want[0]}")
+    log(f"traceback: kernel, plain version and native call agree on 8 "
+        f"shapes x 9 states: max abs err {err}")
+
+    s0 = np.random.default_rng(1 << 20).choice(bases, 1 << 20).astype(
+        np.uint8)
+    pcfg = pipeline.PipelineConfig(device="cuda")
+    res, end = pipeline.stage1_pass(s0, s0, pcfg)
+    cps = pipeline.stage2_march(s0, s0, pcfg, end, res.specials,
+                                res.dev_cache)
+    res = None
+    cps = mm.stage4_reduce(s0, s0, cps, params, pcfg.max_partition,
+                           stage5_max_cells=pcfg.max_cells_stage5,
+                           device="cuda")
+    times, alns = {}, {}
+    saved, kernels.event_log = kernels.event_log, []
+    try:
+        parts0 = stage5_partitions()
+        for where in ("cuda", "cpu"):
+            t0 = time.time()
+            alns[where] = pipeline.stage5_emit(
+                s0, s0, pipeline.PipelineConfig(device=where), cps)
+            times[where] = time.time() - t0
+            if where == "cuda":
+                parts, taken = (x - y for x, y in zip(stage5_partitions(),
+                                                      parts0))
+    finally:
+        kernels.event_log = saved
+    files = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for where, aln in alns.items():
+            balign.write_cgff(os.path.join(tmp, where), aln)
+            with open(os.path.join(tmp, where), "rb") as fh:
+                files[where] = fh.read()
+    card, host = alns["cuda"], alns["cpu"]
+    hw = np.array([(b.i - a.i, b.j - a.j) for a, b in zip(cps, cps[1:])])
+    log(f"traceback: the 1M self-pair's stage 5, {parts} partitions "
+        f"({taken} on the card by the port's partitions.card), "
+        f"{int((hw[:, 0] * hw[:, 1]).sum())} cells: {times['cuda']:.3f} s "
+        f"on the card, {times['cpu']:.3f} s on the host; score "
+        f"{card.raw_score}")
+    if files["cuda"] != files["cpu"] or card.gaps != host.gaps \
+            or card.raw_score != host.raw_score \
+            or not parts == taken == len(hw):
+        raise AssertionError("stage 5 on the card differs from the host's, "
+                             "or left partitions to the host")
+    ci = np.array([c.i for c in cps], np.int64)
+    cj = np.array([c.j for c in cps], np.int64)
+    ct = np.array([int(c.type) for c in cps], np.int64)
+    items = np.stack([ci[:-1], hw[:, 0], cj[:-1], hw[:, 1], ct[:-1],
+                      ct[1:]], 1)
+    a = torch.from_numpy(s0).to(dev)
+
+    def timed(batch):
+        """The least of four calls by their launch events, the cells and
+        the bytes moved: the partitions' characters, items and output."""
+        saved, kernels.event_log = kernels.event_log, []
+        try:
+            best = None
+            for _ in range(4):
+                out = kernels.traceback_cuda(a, a, batch, match=1,
+                                             mismatch=-3, gap_open=3,
+                                             gap_ext=2)
+                ms = kernels.drain_events()["traceback"]
+                best = ms if best is None else min(best, ms)
+        finally:
+            kernels.event_log = saved
+        cells = int((batch[:, 1] * batch[:, 3]).sum())
+        return best, cells, int((batch[:, 1] + batch[:, 3]).sum()) + 4 * (
+            out.numel() + 8 * len(batch))
+
+    ms, cells, moved = timed(items)
+    bound = 1e3 * 7 * cells / (132 * 64 * 1.98e9)
+    log(f"traceback: kernel {ms:.4f} ms over all {len(items)} partitions "
+        f"({cells} cells), bound {bound:.4f} ms by operations = "
+        f"{100 * bound / ms:.1f}% of it")
+    # the kernels line's row: a wave of the card (a partition an SM),
+    # the kernel and the plain version on the same partitions
+    wave = items[:torch.cuda.get_device_properties(dev).multi_processor_count]
+    ms, cells, moved = timed(wave)
+    t0 = time.time()
+    for k in range(0, len(wave), 16):
+        smallsw.traceback_plain(torch.from_numpy(s0), torch.from_numpy(s0),
+                                wave[k:k + 16], params)
+    plain_ms = 1e3 * (time.time() - t0)
+    log(f"traceback: a wave of {len(wave)} partitions ({cells} cells): "
+        f"kernel {ms:.4f} ms, the plain version {plain_ms:.0f} ms")
+    return err, (ms, plain_ms, cells, moved)
+
+
 def full_run(s0, s1):
     """Phase 4: the six stages on the 1M pair through align_pair, timed
     and counted per stage.  Stage 3 densifies to max_cells_stage5 and
@@ -1685,14 +1854,17 @@ def full_run(s0, s1):
         c.launches = 0
     kernels.drain_events()
     torch.cuda.reset_peak_memory_stats()
+    parts0 = stage5_partitions()
     aln = pipeline.align_pair(s0, s1, pcfg, on_stage=on_stage, stats=stats)
+    parts, card = (x - y for x, y in zip(stage5_partitions(), parts0))
     t0 = time.time()
     rc = stage6.recheck(aln, s0, s1, pcfg.params)
     secs["stage6"] = time.time() - t0
     total = sum(secs.values())
     log(f"1M pair: score {aln.raw_score} (stage-6 re-score {rc.score}), "
         f"start {list(aln.start)} end {list(aln.end)}, crosspoints "
-        + ", ".join(f"{v} after {k}" for k, v in ncps.items()))
+        + ", ".join(f"{v} after {k}" for k, v in ncps.items())
+        + f"; stage 5's partitions {parts}, on the card {card}")
     log(f"1M pair: {total:.2f} s in all, "
         f"{len(s0) * len(s1) / total / 1e9:.2f} GCUPS whole run; per stage "
         + json.dumps({k: round(v, 3) for k, v in secs.items()}))
@@ -1702,6 +1874,10 @@ def full_run(s0, s1):
     for s in ("stage1", "stage2", "stage3"):
         if launches[s]["strip"] <= 0:
             raise AssertionError(f"{s} launched no strip kernel")
+    if launches["stage5"]["traceback"] <= 0 or not 0 < card == parts:
+        raise AssertionError(f"align_pair's stage 5 gave the card {card} "
+                             f"of {parts} partitions in "
+                             f"{launches['stage5']['traceback']} launches")
     if stats.dev_matches <= 0 or stats.chained <= 0:
         raise AssertionError("align_pair's stage 2 matched no hop on the "
                              "card, or chained none")
@@ -1849,7 +2025,9 @@ def run_cli(argv, quiet=("stage1: ... flushed",)):
     """``masa_tpu_torch.cli.main(argv)`` in-process with the kernel counts
     set to 0 just before: its stdout (echoed, less the lines starting with
     ``quiet``), seconds and launches of the COUNTED kernels.  A non-zero
-    exit raises.  ``run_cli.last_tap`` keeps the call's StageTap."""
+    exit raises.  ``run_cli.last_tap`` keeps the call's StageTap,
+    ``run_cli.partitions`` its stage 5's partitions and those the card
+    took (``stage5_partitions``)."""
     from masa_tpu_torch import cli
     from masa_tpu_torch.ops import kernels
 
@@ -1858,10 +2036,13 @@ def run_cli(argv, quiet=("stage1: ... flushed",)):
         c.launches = 0
     kernels.drain_events()
     buf = run_cli.last_tap = StageTap()
+    parts0 = stage5_partitions()
     t0 = time.time()
     with contextlib.redirect_stdout(buf):
         rc = cli.main(argv)
     secs = time.time() - t0
+    run_cli.partitions = tuple(
+        x - y for x, y in zip(stage5_partitions(), parts0))
     rest = kernels.drain_events()
     out = buf.getvalue()
     for line in out.splitlines():
@@ -1871,7 +2052,8 @@ def run_cli(argv, quiet=("stage1: ... flushed",)):
         {st: {k: round(v, 3) for k, v in ms.items()}
          for st, ms in buf.kernel_ms.items()})
         + (f"; after the last stage line {kernel_ms_text(rest)}"
-           if rest else ""))
+           if rest else "")
+        + "; stage 5's partitions %d, on the card %d" % run_cli.partitions)
     if rc != 0:
         raise AssertionError(f"the CLI exited {rc}")
     return out, secs, {k: c.launches for k, c in wrappers.items()}
@@ -1956,6 +2138,7 @@ def cli_run(fa, fb, tmp, cells):
     single = os.path.join(tmp, "single")
     torch.cuda.reset_peak_memory_stats()
     one, secs_1, launches_1 = run_cli([fa, fb, "--work-dir", single] + flags)
+    parts_1 = run_cli.partitions
     peak = torch.cuda.max_memory_allocated()
     st1, st2 = stats_of(single, 1), stats_of(single, 2)
     moves = run_cli.last_tap.seq_moves
@@ -2064,6 +2247,9 @@ def cli_run(fa, fb, tmp, cells):
         raise AssertionError(f"the sparse-row call's hops did not take the "
                              f"three launches each: {st2s}, {launches_s}")
     need_launches("the single CLI call", launches_1)
+    if not 0 < parts_1[1] == parts_1[0]:
+        raise AssertionError("the single CLI call's stage 5 gave the card "
+                             "%d of %d partitions" % parts_1[::-1])
     if launches0["strip"] <= 0:
         raise AssertionError("the CLI's stage 1 launched no strip kernel")
     if launches1["batched_strip"] <= 0:
@@ -2108,7 +2294,8 @@ def one_launch(launches, stage2, what):
                              f"were not one hop launch each: {launches}")
 
 
-def need_launches(what, launches, names=("strip", "batched_strip")):
+def need_launches(what, launches,
+                  names=("strip", "batched_strip", "traceback")):
     for k in names:
         if launches[k] <= 0:
             raise AssertionError(f"{what} launched no {k} kernel")
@@ -2143,7 +2330,7 @@ def fork_cli(fa, fb, tmp):
                            quiet=())
     if f"alignment score: {SCORE_1M}  (2 forked processes" not in out:
         raise AssertionError(f"--fork 2 did not score {SCORE_1M}")
-    launches = {"strip": 0, "batched_strip": 0}
+    launches = {"strip": 0, "batched_strip": 0, "traceback": 0}
     for k in range(2):
         with open(os.path.join(work, "shared", f"worker.{k:02d}.json")) as fh:
             w = json.load(fh)
@@ -2154,7 +2341,7 @@ def fork_cli(fa, fb, tmp):
         if w["launches"]["strip"] <= 0:
             raise AssertionError(f"fork worker {k} launched no strip kernel")
         for n in launches:
-            launches[n] += w["launches"][n]
+            launches[n] += w["launches"].get(n, 0)
     log(f"--fork 2 1M pair: score {SCORE_1M} in {secs:.2f} s; launches "
         + json.dumps(launches))
     need_launches("--fork 2", launches)
@@ -2174,7 +2361,8 @@ def oversize_real2(tmp):
     a, b = (masa_tpu_torch.load_sequence(os.path.join(g, f"real2_{x}.fa"))
             for x in "ab")
     counters = {"strip": kernels.strip_cuda,
-                "batched_strip": kernels.batched_strip_cuda}
+                "batched_strip": kernels.batched_strip_cuda,
+                "traceback": kernels.traceback_cuda}
     for c in counters.values():
         c.launches = 0
     secs, kms = {}, {}
@@ -2194,7 +2382,7 @@ def oversize_real2(tmp):
         + "; launches " + json.dumps(launches))
     if best != 32466 or aln.raw_score != 32466:
         raise AssertionError("real2 through align_oversize: expected 32466")
-    need_launches("align_oversize", launches, ("strip",))
+    need_launches("align_oversize", launches, ("strip", "traceback"))
     return launches
 
 
@@ -2630,6 +2818,7 @@ def main() -> int:
     err["hop_prep"] = err["hop_match"] = max(err_three, err_tall)
     err["strip"] = max(err["strip"], err_tall, big_launch_phase(dev)[0])
     times.update(hop_times)
+    err["traceback"], times["traceback"] = traceback_phase(dev)
     kernels.event_log = []  # time every launch of the main-path runs
     golden_pairs()
     from masa_tpu_torch.tools.pairs import bench_pair
@@ -2755,6 +2944,13 @@ def main() -> int:
                                  f"its first stop at k = hb", ms, cells,
                                  moved, rate["untracked"], old_rate,
                                  code_rate["untracked"])
+        elif name == "traceback":
+            # seven INT32-lane instructions a cell, not four
+            ms, plain_ms, cells, moved = times[name]
+            bound, by = bound_of(f"{name} at a wave of the 1M self-pair's "
+                                 f"stage 5 (a partition an SM)",
+                                 ms, cells, moved, rate["untracked"] * 4 / 7,
+                                 old_rate, code_rate["untracked"])
         elif name in THREE:
             # bytes alone: a few a column, so the bound is the bytes over
             # the memory rate, and a launch's latency sets the time

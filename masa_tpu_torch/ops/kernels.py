@@ -2,7 +2,8 @@
 
 Each kernel source (``csrc/strip.cu``, ``csrc/batched_strip.cu``,
 ``csrc/roofline.cu`` and ``csrc/hop.cu``, which include
-``csrc/gotoh_cell.cuh``, the DP cell) is compiled with ``nvcc`` for
+``csrc/gotoh_cell.cuh``, the DP cell, and ``csrc/traceback.cu``, stage
+5's DP and walk) is compiled with ``nvcc`` for
 ``sm_90a`` into its own
 shared library with a plain C interface, at first use, into
 ``masa_tpu_torch/_build/`` (named by the source's hash, so an edited source
@@ -12,7 +13,8 @@ imported: the CPU tests import it on hosts with no toolkit.
 ``strip_cuda``, ``batched_strip_cuda``, ``batched_strip_fixed_cuda``,
 ``hop_cuda`` (a stage-2 hop in one launch), ``hop_prep_cuda`` and
 ``hop_match_cuda`` (the prologue and epilogue of a hop taller than a
-cluster holds) launch their kernels on PyTorch's current stream and count
+cluster holds) and ``traceback_cuda`` (stage 5's partitions) launch their
+kernels on PyTorch's current stream and count
 their launches in ``.launches``; the roofline tool's launcher lives in
 ``masa_tpu_torch/tools/roofline.py``.
 """
@@ -31,11 +33,13 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from masa_tpu_torch.types import ScoreParams
 from masa_tpu_torch.utils import trace
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = {name: os.path.join(_PKG, "csrc", f"{name}.cu")
-           for name in ("strip", "batched_strip", "roofline", "hop")}
+           for name in ("strip", "batched_strip", "roofline", "hop",
+                        "traceback")}
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -167,6 +171,10 @@ _SIGNATURES = {
                             + ["i"] * 9 + ["p"]),
         "masa_hop_max_cluster": [],
         "masa_hop_max_warps": [],
+    },
+    "traceback": {
+        "masa_traceback_max_shared": [],
+        "masa_traceback_launch": ["p"] * 3 + ["i", "p"] + ["i"] * 8 + ["p"],
     },
 }
 
@@ -824,3 +832,205 @@ def hop_cuda(a, s1r, cut_h, cut_f, st_in, st_out, W: int, *, match: int,
 
 
 hop_cuda.launches = 0
+
+
+# csrc/traceback.cu: an item's fields, in the kernel's order (the wrapper
+# adds the last two: where in its output a partition's score and run count
+# and its slot of runs lie), the warps of a block at most (the kernel's
+# MAXW, which its launch checks) and the rows of a warp's strip (a row a
+# thread)
+TRACEBACK_FIELDS = ("i0", "h", "j0", "w", "type_s", "type_e")
+TRACEBACK_MAX_WARPS = 16
+TRACEBACK_STRIP_ROWS = 32
+# partitions a call of traceback_cuda takes at most, so that its output
+# (2 (h + w) ints a partition) stays bounded
+TRACEBACK_BATCH = 1 << 14
+# the magnitude every score of an admitted partition stays under: far from
+# the int32 edge, and from -INF, so that int32 compares as int64 does
+TRACEBACK_SCORE_LIMIT = 1 << 27
+_traceback_shared: dict = {}  # device index -> masa_traceback_max_shared()
+
+
+def traceback_warps(h):
+    """Warps of a block for partitions of ``h`` rows (an int or an array):
+    a strip of ``TRACEBACK_STRIP_ROWS`` rows each, at most
+    ``TRACEBACK_MAX_WARPS`` (taller ones deal their strips round robin),
+    and one for a partition of no rows (its walk)."""
+    return np.minimum(TRACEBACK_MAX_WARPS,
+                      np.maximum(1, -(-np.asarray(h) //
+                                      TRACEBACK_STRIP_ROWS)))
+
+
+def traceback_table_words(h, w):
+    """Words of a partition's table: h + 1 rows of w + 1 cells, 4 bits a
+    cell, a row padded to a word."""
+    return (np.asarray(h) + 1) * ((np.asarray(w) >> 3) + 1)
+
+
+def traceback_smem(warps, table_words, cols):
+    """Bytes of shared memory a block of ``csrc/traceback.cu`` needs, in
+    the kernel's order: a slot of ``cols`` (H, F) pairs a warp, the table,
+    the end state's score and ``cols`` - 1 characters of the columns.
+    Each launch asks for this much; the kernel refuses less."""
+    return 8 * warps * cols + 4 * table_words + 4 + cols - 1
+
+
+def traceback_fits(h, w, params, smem_limit: int):
+    """Whether the kernel takes partitions of ``h`` x ``w`` (ints or
+    arrays) under the scores ``params`` on a card whose blocks may ask
+    ``smem_limit`` bytes of shared memory: its table fits alone, and its
+    scores stay far from the int32 edge (the deepest gap, (h + w + 2)
+    (|gap_open| + |gap_ext|), and the longest run of matches or
+    mismatches, (h + w) max(|match|, |mismatch|))."""
+    h, w = np.asarray(h, np.int64), np.asarray(w, np.int64)
+    gap = (h + w + 2) * (abs(params.gap_open) + abs(params.gap_ext))
+    sub = (h + w) * max(abs(params.match), abs(params.mismatch))
+    hh, ww = np.maximum(h, 0), np.maximum(w, 0)
+    need = traceback_smem(traceback_warps(hh),
+                          traceback_table_words(hh, ww), ww + 1)
+    return (h >= 0) & (w >= 0) & (np.maximum(gap, sub)
+                                  <= TRACEBACK_SCORE_LIMIT) \
+        & (need <= smem_limit)
+
+
+def traceback_layout(hw) -> tuple[np.ndarray, np.ndarray, int]:
+    """Where the partitions of ``hw`` ((B, 2) heights and widths) lie in
+    the output of ``traceback_cuda`` and ``smallsw.traceback_plain``: each
+    partition's score and run count at ``out[k], out[k] + 1`` (the first 2B
+    ints), its slot of 2 (h + w) ints at ``ops[k]`` after them, its runs
+    at the slot's end; and the output's length."""
+    hw = np.asarray(hw, np.int64).reshape(-1, 2)
+    B = len(hw)
+    cap = 2 * hw.sum(1)
+    ops = 2 * B + np.cumsum(cap) - cap
+    return 2 * np.arange(B, dtype=np.int64), ops, int(2 * B + cap.sum())
+
+
+def traceback_launches(hw, smem_limit: int) -> list:
+    """The launches of one ``traceback_cuda`` call: ``(index, warps,
+    table_words, cols)`` each, the partitions of ``hw`` it takes and the
+    largest block among them.  Partitions go into buckets by the shared
+    memory they need alone (a power of two each), so that small tables
+    pack several blocks on an SM; a bucket whose largest block would pass
+    ``smem_limit`` is cut where it would.  Every partition must fit alone
+    (``traceback_fits``).  The library call's stage 5 on a 2^20-base
+    sequence against itself mixes 7,688 partitions, most of them ~136 x
+    136 and the largest 512 x 512: on an H100 its two launches took 1.43
+    ms, one launch sized to the largest block 6.27 ms."""
+    hw = np.asarray(hw, np.int64).reshape(-1, 2)
+    if len(hw) == 0:
+        return []
+    h, w = hw[:, 0], hw[:, 1]
+    warps = traceback_warps(h)
+    words = traceback_table_words(h, w)
+    need = traceback_smem(warps, words, w + 1)
+    if need.max() > smem_limit:
+        raise ValueError("a partition's table does not fit the card's "
+                         "shared memory")
+    order = np.argsort(need, kind="stable")
+    bucket = np.ceil(np.log2(need[order])).astype(np.int64)
+    out = []
+    for b in np.unique(bucket):
+        idx = order[bucket == b]
+        while len(idx):
+            big = [np.maximum.accumulate(x[idx]) for x in (warps, words,
+                                                           w + 1)]
+            ok = traceback_smem(*big) <= smem_limit
+            n = len(idx) if ok.all() else int(np.argmin(ok))
+            out.append((np.sort(idx[:n]), *(int(x[n - 1]) for x in big)))
+            idx = idx[n:]
+    return out
+
+
+def traceback_max_shared(dev) -> int:
+    """The shared memory a block of the traceback kernel may ask for on the
+    card ``dev`` (read once a device)."""
+    dev = torch.device(dev)
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _traceback_shared:
+        with torch.cuda.device(idx):
+            n = int(load("traceback").masa_traceback_max_shared())
+        if n < 1:
+            raise RuntimeError(f"could not query the card's shared memory: "
+                               f"CUDA error {-n}")
+        _traceback_shared[idx] = n
+    return _traceback_shared[idx]
+
+
+def traceback_cuda(a, b, items, *, match: int, mismatch: int,
+                   gap_open: int, gap_ext: int):
+    """Stage 5's constrained DP and traceback of many partitions on the
+    card (``csrc/traceback.cu``; the contract of
+    ``smallsw.traceback_plain``), in a few launches by the shared memory
+    each needs (``traceback_launches``).
+
+    ``a`` and ``b`` are the uint8 sequence views on one CUDA device;
+    ``items`` a host (B, 6) int array of ``TRACEBACK_FIELDS``: rows
+    ``[i0, i0+h)`` of ``a`` against columns ``[j0, j0+w)`` of ``b``, from
+    the start state ``type_s`` to the end state ``type_e`` (0 H, 1 E,
+    2 F).  Every partition must pass ``traceback_fits``; at most
+    ``TRACEBACK_BATCH`` a call.  Returns the int32 output on the card,
+    laid out as ``traceback_layout`` says: each partition's end-state
+    score and run count (-1 where the walk failed, as ``masa_traceback``
+    fails), and its runs ``(code, length)`` in forward order at the end
+    of its slot."""
+    dev = a.device
+    if dev.type != "cuda":
+        raise ValueError(f"traceback_cuda needs CUDA tensors, got {dev}")
+    for name, x in (("a", a), ("b", b)):
+        if x.device != dev or x.dtype != torch.uint8 or x.dim() != 1 \
+                or not x.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous 1-D uint8 tensor "
+                             f"on {dev}")
+    it = np.asarray(items, np.int64)
+    if it.ndim != 2 or it.shape[1] != len(TRACEBACK_FIELDS) \
+            or not 1 <= len(it) <= TRACEBACK_BATCH:
+        raise ValueError(f"items must be (B, {len(TRACEBACK_FIELDS)}) with "
+                         f"1 <= B <= {TRACEBACK_BATCH}, got {it.shape}")
+    i0, h, j0, w, ts, te = it.T
+    if min(i0.min(), h.min(), j0.min(), w.min()) < 0 \
+            or (i0 + h).max() > a.numel() or (j0 + w).max() > b.numel():
+        raise ValueError("a partition reaches past its sequence view")
+    if min(ts.min(), te.min()) < 0 or max(ts.max(), te.max()) > 2:
+        raise ValueError("states must be 0, 1 or 2")
+    params = ScoreParams(match, mismatch, gap_open, gap_ext)
+    limit = traceback_max_shared(dev)
+    if not traceback_fits(h, w, params, limit).all():
+        raise ValueError("a partition does not fit the kernel "
+                         "(traceback_fits)")
+    hdr, ops, total = traceback_layout(it[:, 1:4:2])
+    table = np.concatenate([it, hdr[:, None], ops[:, None]], 1)
+    if total >= 1 << 31:
+        raise ValueError(f"an output of {total} ints")
+    lib = load("traceback")
+    out = torch.zeros(total, dtype=torch.int32, device=dev)
+    launches = traceback_launches(it[:, 1:4:2], limit)
+    # every launch's items in one table, sent from pinned memory so that
+    # the copy is queued like the launches
+    table = np.concatenate([table[idx] for idx, *_ in launches]).astype(
+        np.int32)
+    items_d = torch.from_numpy(table).pin_memory().to(dev, non_blocking=True)
+    first = 0
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for idx, warps, words, cols in launches:
+            smem = traceback_smem(warps, words, cols)
+            with _launch_events("traceback"):
+                rc = lib.masa_traceback_launch(
+                    ctypes.c_void_p(a.data_ptr()),
+                    ctypes.c_void_p(b.data_ptr()),
+                    ctypes.c_void_p(items_d[first].data_ptr()), len(idx),
+                    ctypes.c_void_p(out.data_ptr()), match, mismatch,
+                    gap_open, gap_ext, warps, words, cols, smem,
+                    ctypes.c_void_p(stream))
+            if rc != 0:
+                raise RuntimeError(
+                    f"traceback kernel launch failed: CUDA error {rc} "
+                    f"({len(idx)} partitions, {warps} warps, {smem} bytes "
+                    f"of shared memory a block)")
+            traceback_cuda.launches += 1
+            first += len(idx)
+    return out
+
+
+traceback_cuda.launches = 0

@@ -178,7 +178,8 @@ def worker_main(config_path: str) -> int:
                             "total": time.perf_counter() - t_start},
                 "launches": {"strip": kernels.strip_cuda.launches,
                              "batched_strip":
-                                 kernels.batched_strip_cuda.launches},
+                                 kernels.batched_strip_cuda.launches,
+                             "traceback": kernels.traceback_cuda.launches},
             }, f)
 
     if not pool.is_first_node():

@@ -7,7 +7,9 @@
     stage 4  Myers-Miller splitting (the batched strip kernel on a GPU,
              down to isqrt(max_cells_stage5); the native host ladder,
              ``native/masanative.cpp``, on the CPU)
-    stage 5  exact constrained DP + traceback per partition (host)
+    stage 5  exact constrained DP + traceback per partition (on a card
+             the traceback kernel, csrc/traceback.cu, takes every
+             partition that fits it, in one pass; the rest on the host)
     stage 6  the independent re-score of the stage-5 statistics
 """
 
@@ -265,12 +267,23 @@ def stage5_emit(
     aln.start = [start.i + 1, start.j + 1]
     aln.end = [end.i, end.j]
     total = 0
-    for c0, c1 in zip(cps, cps[1:]):
+    # on a card, the DP and walk of every partition the kernel admits, in
+    # one pass; the rest, and every partition on the host, one at a time
+    card = smallsw.traceback_on_card(seq0, seq1, cps, p, pcfg.device)
+    for k, (c0, c1) in enumerate(zip(cps, cps[1:])):
         trace.count("partitions")
         sub0 = np.ascontiguousarray(seq0[c0.i:c1.i])
         sub1 = np.ascontiguousarray(seq1[c0.j:c1.j])
-        seg = smallsw.traceback_segment(sub0, sub1, c0.i, c0.j, c0.type,
-                                        c1.type, p, aln)
+        if k in card:
+            seg, ops = card[k]
+            if ops is None:
+                raise RuntimeError("native traceback failed")
+            smallsw.apply_ops(sub0, sub1, ops, aln,
+                              lambda q, i0=c0.i: i0 + 1 + q,
+                              lambda q, j0=c0.j: j0 + 1 + q)
+        else:
+            seg = smallsw.traceback_segment(sub0, sub1, c0.i, c0.j,
+                                            c0.type, c1.type, p, aln)
         expect = c1.score - c0.score
         if seg != expect:
             raise RuntimeError(

@@ -1,6 +1,7 @@
 """The Hopper kernels (the strip kernel, the two batched strip kernels, the
 roofline bodies, the one-launch stage-2 hop and the three-launch hop's
-prologue and epilogue) against their plain PyTorch versions, on the card.
+prologue and epilogue, stage 5's batched traceback) against their plain
+PyTorch versions, on the card.
 
 These need a CUDA GPU and nvcc and skip elsewhere, and import nothing of
 masa_tpu.  The repo's conftest imports JAX, which a machine with only the
@@ -15,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from masa_tpu_torch.ops import batched_mm, kernels
+from masa_tpu_torch.ops import batched_mm, kernels, smallsw
 from masa_tpu_torch.ops import wavefront as wf
 from masa_tpu_torch.tools import batched_tune, hop_tune
 from masa_tpu_torch.types import INF, InitType, ScoreParams
@@ -921,3 +922,197 @@ def test_goal_match_on_the_card_matches_cpu(cuda):
         got = wf.goal_match_device(*(a.to(cuda) for a in args), cj, goal,
                                    -5, -7, W1=w + 1, go=3)
         assert got.is_cuda and got.cpu().tolist() == want.tolist()
+
+
+# --- stage 5's batched traceback (csrc/traceback.cu) -----------------------
+
+TB_SHAPES = [(0, 9), (9, 0), (0, 0), (1, 300), (300, 1), (137, 136),
+             (512, 512), (64, 4096), (4096, 64), (33, 1), (31, 40)]
+TB_SCORES = [ScoreParams(), ScoreParams(2, -1, 1, 2), ScoreParams(1, -2, 3, 1)]
+
+
+def tb_pair(h, w, seed):
+    """``w`` columns copied from ``h`` random rows with substitutions,
+    insertions and deletions."""
+    r = np.random.default_rng(seed)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    s0 = r.choice(bases, h).astype(np.uint8)
+    out = []
+    for c in s0:
+        x = r.random()
+        if x < 0.04:
+            continue
+        out.append(c if x > 0.12 else r.choice(bases))
+        if x > 0.96:
+            out.extend(r.choice(bases, int(r.integers(1, 4))))
+    s1 = np.array(out[:w], np.uint8)
+    if len(s1) < w:
+        s1 = np.concatenate([s1, r.choice(bases, w - len(s1))])
+    return s0, s1.astype(np.uint8)
+
+
+def tb_batch(parts, dev):
+    """Sequence views on ``dev`` and items for ``(s0, s1, ts, te)``
+    partitions laid end to end."""
+    a = np.concatenate([np.zeros(0, np.uint8)] + [p[0] for p in parts])
+    b = np.concatenate([np.zeros(0, np.uint8)] + [p[1] for p in parts])
+    i0 = np.cumsum([0] + [len(p[0]) for p in parts])[:-1]
+    j0 = np.cumsum([0] + [len(p[1]) for p in parts])[:-1]
+    items = np.array([(x, len(p[0]), y, len(p[1]), p[2], p[3])
+                      for x, y, p in zip(i0, j0, parts)], np.int64)
+    return (torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev),
+            items)
+
+
+def tb_native(s0, s1, ts, te, params):
+    from masa_tpu_torch.native import bindings
+
+    try:
+        return bindings.traceback_ops(s0, s1, ts, te, params)
+    except RuntimeError:
+        return None
+
+
+@pytest.mark.parametrize("k", range(len(TB_SCORES)))
+def test_traceback_kernel_matches_plain(cuda, k):
+    """Every shape and all nine start and end states in one call of the
+    kernel (several launches by shared memory): each partition's score,
+    runs and failure equal the plain version's (one shape a call) and the
+    native call's."""
+    params = TB_SCORES[k]
+    parts = []
+    for n, (h, w) in enumerate(TB_SHAPES):
+        s0, s1 = tb_pair(h, w, 100 * k + n)
+        parts += [(s0, s1, ts, te) for ts in range(3) for te in range(3)]
+    a, b, items = tb_batch(parts, cuda)
+    before = kernels.traceback_cuda.launches
+    out = smallsw.traceback_batch(a, b, items, params)
+    assert out.is_cuda and kernels.traceback_cuda.launches > before
+    got = smallsw.traceback_decode(out.cpu().numpy(), items[:, 1:4:2])
+    for n in range(len(TB_SHAPES)):
+        sl = slice(9 * n, 9 * n + 9)
+        pa, pb, pitems = tb_batch(parts[sl], "cpu")
+        plain = smallsw.traceback_decode(
+            smallsw.traceback_plain(pa, pb, pitems, params).numpy(),
+            pitems[:, 1:4:2])
+        for (s0, s1, ts, te), (seg, ops), (pseg, pops) in zip(
+                parts[sl], got[sl], plain):
+            what = (TB_SHAPES[n], ts, te)
+            assert seg == pseg, what
+            assert (ops is None) == (pops is None), what
+            want = tb_native(s0, s1, ts, te, params)
+            assert (want is None) == (ops is None), what
+            if ops is not None:
+                assert np.array_equal(ops, pops), what
+                assert seg == want[0] and np.array_equal(ops, want[1]), what
+
+
+@pytest.mark.parametrize("h,w,B", [(512, 512, 2048), (136, 136, 7688),
+                                   (520, 500, 300)])
+def test_traceback_kernel_at_the_main_paths_shapes(cuda, h, w, B):
+    """The CLI's partitions (2,048 of 512 x 512), the library call's
+    (~7,688 of ~136 x 136) and ragged ones about 512, each against the
+    native call."""
+    rng = np.random.default_rng(h + B)
+    parts = []
+    for n in range(B):
+        hh = int(rng.integers(h - 8, h + 1))
+        ww = int(rng.integers(w - 8, w + 1))
+        s0, s1 = tb_pair(hh, ww, 1000 + n)
+        parts.append((s0, s1, int(rng.integers(3)), int(rng.integers(3))))
+    a, b, items = tb_batch(parts, cuda)
+    got = smallsw.traceback_decode(
+        smallsw.traceback_batch(a, b, items, ScoreParams()).cpu().numpy(),
+        items[:, 1:4:2])
+    for (s0, s1, ts, te), (seg, ops) in zip(parts, got):
+        want = tb_native(s0, s1, ts, te, ScoreParams())
+        assert (want is None) == (ops is None)
+        if ops is not None:
+            assert seg == want[0] and np.array_equal(ops, want[1])
+
+
+def test_traceback_shared_bytes_mirror_the_kernel(cuda):
+    """The shared memory the wrapper asks for (``traceback_smem``) is what
+    the kernel's layout needs: a launch of that size runs and walks, one
+    of a byte less is refused, as is a block of more warps than the
+    kernel takes."""
+    lib = kernels.load("traceback")
+    limit = kernels.traceback_max_shared(cuda)
+    assert limit >= 227 * 1024
+    assert kernels.traceback_fits(512, 512, ScoreParams(), limit)
+    a = torch.zeros(600, dtype=torch.uint8, device=cuda)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    for h, w in [(0, 0), (1, 1), (137, 136), (512, 512), (520, 64)]:
+        items = np.array([[0, h, 0, w, 0, 0]], np.int64)
+        hdr, ops, total = kernels.traceback_layout(items[:, 1:4:2])
+        table = torch.from_numpy(np.concatenate(
+            [items, hdr[:, None], ops[:, None]], 1).astype(np.int32)).to(cuda)
+        out = torch.zeros(total, dtype=torch.int32, device=cuda)
+        warps = int(kernels.traceback_warps(h))
+        words = int(kernels.traceback_table_words(h, w))
+        smem = kernels.traceback_smem(warps, words, w + 1)
+
+        def launch(nw, size):
+            return lib.masa_traceback_launch(
+                a.data_ptr(), a.data_ptr(), table.data_ptr(), 1,
+                out.data_ptr(), 1, -3, 3, 2, nw, words, w + 1, size, stream)
+
+        assert launch(warps, smem - 1) != 0, (h, w)
+        assert launch(kernels.TRACEBACK_MAX_WARPS + 1, 1 << 17) != 0
+        assert launch(warps, smem) == 0, (h, w)
+        torch.cuda.synchronize()
+        want = tb_native(np.zeros(h, np.uint8), np.zeros(w, np.uint8), 0, 0,
+                         ScoreParams())
+        assert out[0].item() == want[0] and out[1].item() == len(want[1])
+
+
+def test_traceback_wrapper_rejects_bad_inputs(cuda):
+    a = torch.zeros(800, dtype=torch.uint8, device=cuda)
+    kw = dict(match=1, mismatch=-3, gap_open=3, gap_ext=2)
+    for items in ([[0, 700, 0, 700, 0, 0]],      # past the shared memory
+                  [[0, 4, 0, 4, 3, 0]],          # no such state
+                  [[790, 20, 0, 4, 0, 0]],       # past the sequence
+                  np.zeros((0, 6))):
+        with pytest.raises(ValueError):
+            kernels.traceback_cuda(a, a, np.array(items, np.int64), **kw)
+
+
+def test_stage5_on_the_card_matches_the_host(cuda, tmp_path):
+    """Stage 5 on the card (every partition through the kernel) gives the
+    host route's alignment byte for byte: statistics, gap lists, the CGFF
+    file."""
+    import os
+
+    from masa_tpu_torch.biology import alignment as balign
+    from masa_tpu_torch.ops import myers_miller as mm
+    from masa_tpu_torch.stages import pipeline
+    from masa_tpu_torch.utils import trace
+
+    s0, s1 = tb_pair(30000, 29800, 7)
+    pcfg = pipeline.PipelineConfig(device="cuda")
+    res, end = pipeline.stage1_pass(s0, s1, pcfg)
+    cps = pipeline.stage2_march(s0, s1, pcfg, end, res.specials,
+                                res.dev_cache)
+    cps = mm.stage4_reduce(s0, s1, cps, pcfg.params, 16,
+                           stage5_max_cells=pcfg.max_cells_stage5,
+                           device="cuda")
+    saved, kernels.event_log = kernels.event_log, []
+    trace.reset()
+    try:
+        card = pipeline.stage5_emit(s0, s1, pcfg, cps)
+        counts = dict(trace.counts)
+    finally:
+        kernels.event_log = saved
+        trace.reset()
+    host = pipeline.stage5_emit(
+        s0, s1, pipeline.PipelineConfig(device="cpu"), cps)
+    assert counts[(None, "partitions.card")] == len(cps) - 1
+    assert counts[(None, "partitions")] == len(cps) - 1
+    files = []
+    for name, aln in (("card", card), ("host", host)):
+        path = os.path.join(tmp_path, f"{name}.cgff")
+        balign.write_cgff(path, aln)
+        with open(path, "rb") as fh:
+            files.append(fh.read())
+    assert files[0] == files[1]
+    assert card.gaps == host.gaps and card.raw_score == host.raw_score
