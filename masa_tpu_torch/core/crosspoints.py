@@ -8,7 +8,8 @@ CrosspointsFile (common/CrosspointsFile.cpp:101-106):
     ...
     END
 
-with crash-safe tmp+rename writes and incremental autosave.
+with crash-safe tmp+rename writes and incremental autosave.  Each
+autosaved append is the trace span ``cps.write`` of the stage it runs in.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from __future__ import annotations
 import os
 
 from masa_tpu_torch.types import Crosspoint
+from masa_tpu_torch.utils import trace
 
 
 class CrosspointsFile:
@@ -36,8 +38,9 @@ class CrosspointsFile:
     def write(self, cp: Crosspoint) -> None:
         self.crosspoints.append(cp)
         if self._fh:
-            self._fh.write(f"{int(cp.type)},{cp.i},{cp.j},{cp.score}\n")
-            self._fh.flush()
+            with trace.span("cps.write"):
+                self._fh.write(f"{int(cp.type)},{cp.i},{cp.j},{cp.score}\n")
+                self._fh.flush()
 
     def close(self) -> None:
         if self._fh:

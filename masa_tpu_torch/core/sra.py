@@ -314,8 +314,7 @@ class SpecialRowsPartition:
                             np.asarray(f, np.int32))
             self._ram_bytes += nbytes
         elif disk_fits:
-            self._disk_bytes += write_row(self.dir, r, h, f, self.codec)
-            self._disk.add(r)
+            self._wrote(r, write_row(self.dir, r, h, f, self.codec))
         # else: dropped — the flush ladder sized the interval so this
         # cannot happen unless limits were lowered mid-run.
 
@@ -360,8 +359,14 @@ class SpecialRowsPartition:
         """Write the oldest in-flight row, waiting for its copy."""
         r, lazy = self._pending.pop(0)
         self._pending_bytes -= 8 * lazy.count + 20
-        self._disk_bytes += write_row_packed(self.dir, r, lazy)
+        self._wrote(r, write_row_packed(self.dir, r, lazy))
+
+    def _wrote(self, r: int, nbytes: int) -> None:
+        """Book row ``r``'s file of ``nbytes``, just written, on disk
+        (the trace counter ``rows.bytes``)."""
+        self._disk_bytes += nbytes
         self._disk.add(r)
+        trace.count("rows.bytes", nbytes)
 
     def finalize(self) -> None:
         self._drain(block=True)
@@ -413,12 +418,15 @@ class SpecialRowsPartition:
             if r > i:
                 self._pending_bytes -= 8 * lz.count + 20
         self._pending = [(r, lz) for r, lz in self._pending if r <= i]
-        for r in [r for r in self._disk if r > i]:
-            try:
-                os.remove(_row_path(self.dir, r))
-            except OSError:
-                pass
-            self._disk.discard(r)
+        gone = [r for r in self._disk if r > i]
+        if gone:
+            with trace.span("rows.remove"):
+                for r in gone:
+                    try:
+                        os.remove(_row_path(self.dir, r))
+                    except OSError:
+                        pass
+                    self._disk.discard(r)
 
     def __len__(self):
         return len(self.rows())

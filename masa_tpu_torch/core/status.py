@@ -2,12 +2,15 @@
 
 Crash-safe run status file (common/Status.cpp:27-105): current stage,
 last flushed special row, best score — the resume anchor.  Writes go
-through tmp+rename so a crash never leaves a torn file."""
+through tmp+rename so a crash never leaves a torn file.  Each write is
+the trace span ``status.save`` of the stage it runs in."""
 
 from __future__ import annotations
 
 import json
 import os
+
+from masa_tpu_torch.utils import trace
 
 
 class Status:
@@ -28,13 +31,14 @@ class Status:
 
     def save(self) -> None:
         tmp = self.path + ".tmp"
-        with open(tmp, "w") as f:
-            json.dump({
-                "stage": self.stage,
-                "last_special_row": self.last_special_row,
-                "best": list(self.best),
-            }, f)
-        os.replace(tmp, self.path)
+        with trace.span("status.save"):
+            with open(tmp, "w") as f:
+                json.dump({
+                    "stage": self.stage,
+                    "last_special_row": self.last_special_row,
+                    "best": list(self.best),
+                }, f)
+            os.replace(tmp, self.path)
 
     def update(self, stage: int | None = None,
                last_special_row: int | None = None,

@@ -377,6 +377,8 @@ def stage2(job: Job, seq0: np.ndarray, seq1: np.ndarray, aln_id: int = 0,
         # the rows this call's stage 1 kept on the device, if it ran
         dev_cache=job.runtime_dev_rows, stats=stats,
     )
+    # once a march, so that no segment counts twice
+    trace.count("hops.segments", stats.segments)
     job.runtime_dev_rows = None  # the rows' device memory goes back
     _end_autosave(out_cpf)
     # the full ascending chain: the fresh march + the resumed prefix
