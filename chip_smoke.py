@@ -7,8 +7,9 @@ of its stage-4 launches, for ``tools/batched_tune.py --tables``).
 
 Phases (any failure raises and the run exits non-zero):
   1. the card's name and power limit; build csrc/strip.cu,
-     csrc/batched_strip.cu, csrc/roofline.cu, csrc/hop.cu and
-     csrc/traceback.cu with nvcc, one process each, all started together;
+     csrc/batched_strip.cu, csrc/roofline.cu, csrc/hop.cu,
+     csrc/traceback.cu and csrc/rowpack.cu with nvcc, one process each,
+     all started together;
   2. each kernel against its plain PyTorch version on the card, exact
      integer equality.  The strip kernel: SW/NW x four border types x full
      and partial heights x flush on/off x best/last-column tracking x odd
@@ -90,6 +91,13 @@ Phases (any failure raises and the run exits non-zero):
      stage 4, forward and reverse, level by level, rebuilt from its
      stage-3 crosspoints, each timed against its plain version and its
      own bound;
+  5c. stage 1's disk rows packed a launch at a time (csrc/rowpack.cu):
+     the 1M pair's first stage-1 launch at the CLI's defaults (128 rows
+     of 2^20), the kernel against wavefront.rowpack_plain byte for byte,
+     on the launch's rows and on them with escapes (some past their slot),
+     timed against its bound by bytes, the batch's way to the host beside
+     the per-row way it replaced; then the CLI's stage 1 at its defaults,
+     whose rows.card must equal its disk rows (``rowpack_phase``);
   6. `python -m masa_tpu_torch --test --device cuda` as a subprocess;
   7. the roofline tool (`masa_tpu_torch.tools.roofline.measure`), printed
      as its JSON line: every body on a full card (SMs x the blocks the
@@ -257,10 +265,13 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces, or the code)
     # no TPU kernel: masa_tpu's stage 5 is a native host call a partition
     "traceback": ("masa_tpu_torch/csrc/traceback.cu",
                   "masa_tpu/ops/smallsw.py:112"),  # traceback_segment
+    # no Pallas counterpart: masa_tpu packs a row in XLA, a row at a time
+    "rowpack": ("masa_tpu_torch/csrc/rowpack.cu",
+                "masa_tpu/ops/wavefront.py:1040"),  # delta_pack_device
 }
 # the wrappers whose launches the main-path runs count
 COUNTED = ("strip", "batched_strip", "hop", "hop_prep", "hop_match",
-           "traceback")
+           "traceback", "rowpack")
 # the route of each: the one-launch hop, or the three launches
 THREE = ("hop_prep", "hop_match")
 M_1M = 1 << 20
@@ -1818,6 +1829,166 @@ def traceback_phase(dev):
     return err, (ms, plain_ms, cells, moved)
 
 
+def rowpack_phase(dev, s0, s1, fa, fb, tmp):
+    """Phase 5c: stage 1's disk rows packed a launch at a time
+    (``csrc/rowpack.cu``).  The first stage-1 launch of the 1M pair at the
+    CLI's defaults (65,537 rows against 2^20 columns, a special row every
+    512, pruning inside: 128 rows), its rows packed by the kernel and by
+    ``wavefront.rowpack_plain`` on the CPU, every output byte equal (the
+    nibbles with their padding, anchors, counts, each half's escapes up
+    to its count or its slot); the same rows again with escapes (jumps of
+    1000 at random columns, some halves past their slot, -INF stretches),
+    held the same way; the kernel timed (events around its two
+    launches, least of 20) against its bound by bytes (the rows read
+    once, the buffer's nibbles, anchors and counts and the escapes
+    written once, the blocks' counts written and read); the batch's way to
+    the host (the packer's close: kernel, one copy, its event, waited)
+    beside the per-row way it replaced (``pull_row_delta_start``,
+    ``packed_row_host`` and the anchors' read, a row at a time), host
+    clock, least of 3.  Then the CLI's stage 1 at its defaults
+    (``--ram-size 1G --disk-size 16G --stage-1``) with the trace on: its
+    ``rows.card`` must equal ``statistics_01.00``'s disk rows.  The
+    phase's own launches are in its log line alone; the kernels line
+    counts those of the main-path runs (COUNTED).  Returns
+    (1 where a byte differed else 0, (ms, plain ms, bytes))."""
+    import numpy as np
+    import torch
+
+    from masa_tpu_torch import InitType, ScoreParams
+    from masa_tpu_torch.ops import kernels, strips
+    from masa_tpu_torch.ops import wavefront as wf
+    from masa_tpu_torch.utils import trace
+
+    pulls = []
+    strips.run_partition(
+        wf.StripConfig(rows=1 << 22),
+        torch.from_numpy(s0[:512 * 128 + 1]).to(dev),
+        torch.from_numpy(s1).to(dev), ScoreParams(), InitType.WITH_ZEROES,
+        InitType.WITH_ZEROES, special_every=512, prune=True,
+        on_special_row_lazy=lambda r, p: pulls.append(p))
+    halves = [x for p in pulls for x in (p.dev_h, p.dev_f)]
+    layout = wf.RowPackLayout.of(len(pulls), len(s1))
+    total = layout.offsets()[-1]
+    launches0 = kernels.rowpack_cuda.launches
+
+    def both(halves):
+        """The kernel's and the plain version's buffers of ``halves``
+        compared: (1 where a byte differed else 0, the escape counts, the
+        kernel's buffer, the plain version's ms)."""
+        out = torch.full((total,), 255, dtype=torch.uint8, device=dev)
+        kernels.rowpack_cuda(halves, layout, out)
+        plain = torch.zeros(total, dtype=torch.uint8)
+        cpu = [x.cpu() for x in halves]
+        t0 = time.perf_counter()
+        wf.rowpack_plain(cpu, layout, plain)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        (gu, ga, gc, ge), (wu, wa, wc, we) = (
+            layout.views(out.cpu().numpy()), layout.views(plain.numpy()))
+        err = int(not (np.array_equal(gu, wu) and np.array_equal(ga, wa)
+                       and np.array_equal(gc, wc)))
+        n = np.minimum(wc, layout.cap)
+        for r in range(layout.rows):
+            for s in (0, 1):
+                err |= int(not np.array_equal(ge[r, s, :, :n[r, s]],
+                                              we[r, s, :, :n[r, s]]))
+        return err, wc, out, plain_ms
+
+    err, wc, out, plain_ms = both(halves)
+    if err or len(pulls) != 128:
+        raise AssertionError(f"rowpack of {len(pulls)} rows of the 1M "
+                             f"pair's first launch differs from its plain "
+                             f"version")
+    # the same rows with escapes: each half gets jumps of 1000 at 37 q
+    # mod 2 cap random columns (so some halves pass their slot), every
+    # third a -INF stretch at pruning's grain (an escape at each end)
+    g = torch.Generator(device=dev).manual_seed(26)
+    jumpy = []
+    for q, x in enumerate(halves):
+        step = torch.zeros(layout.nj, dtype=torch.int32, device=dev)
+        at = torch.randint(0, layout.nj, ((37 * q) % (2 * layout.cap),),
+                           generator=g, device=dev)
+        step[at] = 1000
+        y = x + step.cumsum(0, dtype=torch.int32)
+        if q % 3 == 0:
+            c = wf.PRUNE_CHUNK * (1 + q % 5)
+            y[c:3 * c] = NEG
+        jumpy.append(y)
+    err_esc, wc_esc, _, _ = both(jumpy)
+    past = int((wc_esc > layout.cap).sum())
+    if err_esc or wc_esc.sum() <= 0 or past <= 0:
+        raise AssertionError(f"rowpack of the launch's rows with escapes "
+                             f"({int(wc_esc.sum())}, {past} halves past "
+                             f"their slot) differs from its plain version, "
+                             f"or lacks escapes past a slot")
+    del jumpy
+    err |= err_esc
+    kernels.rowpack_cuda(halves, layout, out)  # warm
+    _, _, ms = timed_launch(20, kernels.rowpack_cuda, halves, layout, out)
+    nblk = -(-layout.nj // kernels.ROWPACK_SPAN)
+    moved = len(halves) * (4 * layout.nj + layout.upad + 8 * layout.anchors
+                           + 8 + 2 * 4 * nblk) + 16 * int(
+                               np.minimum(wc, layout.cap).sum())
+    # the batch's way to the host against the per-row way, host clock
+    ways = {"batch": float("inf"), "rows": float("inf")}
+    for _ in range(3):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        packer = strips.RowPacker(torch.cuda.Stream(dev))
+        batch = [strips.RowPull(p.dev_h, p.dev_f, packer.stream, packer)
+                 for p in pulls]
+        for p in batch:
+            p.start()
+        packer.close()
+        for p in batch:
+            p.packed()
+            p.anchors(wf.ANCHOR_STRIDE)
+        ways["batch"] = min(ways["batch"], time.perf_counter() - t0)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        side = torch.cuda.Stream(dev)
+        idx = torch.arange(0, layout.nj, wf.ANCHOR_STRIDE, device=dev)
+        for p in pulls:
+            for x in (p.dev_h, p.dev_f):
+                wf.packed_row_host(wf.pull_row_delta_start(
+                    x, layout.nj, side, snapshot=False))
+                wf.gather_device(x, idx).cpu()
+        ways["rows"] = min(ways["rows"], time.perf_counter() - t0)
+    bound = 1e3 * moved / HBM_BYTES_PER_S
+    log(f"rowpack: the 1M pair's first stage-1 launch ({len(pulls)} rows of "
+        f"{layout.nj}, {int(wc.sum())} escapes, {int((wc > layout.cap).sum())} "
+        f"halves past their slot of {layout.cap}) and its rows with "
+        f"{int(wc_esc.sum())} escapes ({past} halves past their slot) "
+        f"equal to rowpack_plain byte for byte; kernel {ms:.4f} ms (least of 20, events), bound "
+        f"{bound:.4f} ms by bytes ({moved} bytes) = "
+        f"{100 * bound / ms:.1f}%; plain {plain_ms:.1f} ms; to the host as "
+        f"one batch {1e3 * ways['batch']:.2f} ms, row by row "
+        f"{1e3 * ways['rows']:.2f} ms (host clock, least of 3); this "
+        f"phase's own launches "
+        f"{kernels.rowpack_cuda.launches - launches0}")
+    del out, pulls, halves, batch
+    torch.cuda.empty_cache()
+
+    def card_rows():
+        return sum(v for (_, k), v in trace.counts.items()
+                   if k == "rows.card")
+
+    work = os.path.join(tmp, "cli16")
+    before = card_rows()
+    _, secs, launches = run_cli([fa, fb, "--work-dir", work, "--ram-size",
+                                 "1G", "--disk-size", "16G", "--stage-1"])
+    card, stats = card_rows() - before, stats_of(work, 1)
+    log(f"rowpack: the CLI's stage 1 at its defaults in {secs:.2f} s: "
+        f"rows.card {card}, statistics_01.00 ram_rows {stats['ram_rows']} "
+        f"disk_rows {stats['disk_rows']} disk_bytes {stats['disk_bytes']}, "
+        f"rowpack launches {launches['rowpack']}")
+    if card != stats["disk_rows"] or card < 1 or launches["rowpack"] <= 0:
+        raise AssertionError(f"rows.card {card}, disk rows "
+                             f"{stats['disk_rows']}, rowpack launches "
+                             f"{launches['rowpack']}")
+    shutil.rmtree(work, ignore_errors=True)
+    return err, (ms, plain_ms, moved)
+
+
 def full_run(s0, s1):
     """Phase 4: the six stages on the 1M pair through align_pair, timed
     and counted per stage.  Stage 3 densifies to max_cells_stage5 and
@@ -2172,6 +2343,10 @@ def cli_run(fa, fb, tmp, cells):
             [fa, fb, "--work-dir", again, "--stage-1"] + flags)
     if stats_of(again, 1)["lazy_rows"] or not stats_of(work, 1)["lazy_rows"]:
         raise AssertionError("the eager and lazy stage 1 were not so")
+    if launches0["rowpack"] <= 0 or launches_r["rowpack"]:
+        raise AssertionError(f"the lazy stage 1 packed its disk rows in "
+                             f"{launches0['rowpack']} launches, the eager "
+                             f"one in {launches_r['rowpack']}")
     # lazy rows are masa_tpu's packed form on disk, eager rows the area's
     # codec: the values read back must agree, not the bytes
     lazy, eager = (tree_digests(os.path.join(w, "crosspoints"))
@@ -2246,7 +2421,8 @@ def cli_run(fa, fb, tmp, cells):
             launches_s[k] != st2s["issued"] for k in THREE):
         raise AssertionError(f"the sparse-row call's hops did not take the "
                              f"three launches each: {st2s}, {launches_s}")
-    need_launches("the single CLI call", launches_1)
+    need_launches("the single CLI call", launches_1,
+                  ("strip", "batched_strip", "traceback", "rowpack"))
     if not 0 < parts_1[1] == parts_1[0]:
         raise AssertionError("the single CLI call's stage 5 gave the card "
                              "%d of %d partitions" % parts_1[::-1])
@@ -2837,6 +3013,8 @@ def main() -> int:
         write_fasta(fb, "bench s1", s1)
         launches, cps3, mono_secs, _ = cli_run(
             fa, fb, os.path.join(tmp, "cli"), len(s0) * len(s1))
+        err["rowpack"], times["rowpack"] = rowpack_phase(dev, s0, s1, fa,
+                                                         fb, tmp)
         err_lvl, levels = stage4_levels(s0, s1, cps3, dev, save_stage4)
         err["batched_strip"] = max(err["batched_strip"], err_lvl)
         more = [
@@ -2951,6 +3129,13 @@ def main() -> int:
                                  f"stage 5 (a partition an SM)",
                                  ms, cells, moved, rate["untracked"] * 4 / 7,
                                  old_rate, code_rate["untracked"])
+        elif name == "rowpack":
+            # bytes alone: the rows read once, the buffer written once
+            ms, plain_ms, moved = times[name]
+            bound, by = bound_of(f"{name} at the 1M pair's first stage-1 "
+                                 f"launch (128 rows)", ms, 0, moved,
+                                 rate["untracked"], old_rate,
+                                 code_rate["untracked"])
         elif name in THREE:
             # bytes alone: a few a column, so the bound is the bytes over
             # the memory rate, and a launch's latency sets the time

@@ -36,7 +36,7 @@ import struct
 import numpy as np
 
 from masa_tpu_torch.io.rowcodec import CODECS, decode_row, encode_row
-from masa_tpu_torch.ops.wavefront import decode_packed_row
+from masa_tpu_torch.ops.wavefront import ANCHOR_STRIDE, decode_packed_row
 from masa_tpu_torch.utils import trace
 
 MAGIC = b"MSR2"
@@ -47,10 +47,9 @@ MAGIC_ANCHORED = b"MSRQ"
 # in-flight lazy rows pin device snapshots; bound the pinned bytes
 _PENDING_CAP = 2 << 30
 
-# absolute-value anchors every ANCHOR_STRIDE cells inside MSRQ rows:
-# the index (gathered on the device at the flush, wf.gather_device) by
-# which stage 2 decodes a window of a disk row instead of all of it
-ANCHOR_STRIDE = 1 << 16
+# absolute-value anchors every ANCHOR_STRIDE cells inside MSRQ rows
+# (ops/wavefront.ANCHOR_STRIDE, packed with the row on its device): the
+# index by which stage 2 decodes a window of a disk row instead of all of it
 
 # "MSR2" | u8 codec | int64 row | int64 count, then the payload; a "none"
 # payload is a one-array blob (u8 count, u8 dtype, int64 length) of
@@ -100,6 +99,13 @@ def write_row_packed(dirpath: str, r: int, lazy) -> int:
             (uh, np.uint8), (mih, np.int64), (mvh, np.int64),
             (uf, np.uint8), (mif, np.int64), (mvf, np.int64),
             (anc_h, np.int64), (anc_f, np.int64))))
+
+
+def _packed_floor(count: int) -> int:
+    """The fewest bytes the MSRQ file of a row of ``count`` cells takes:
+    its head, nibbles and anchors (its escapes come with the row)."""
+    nj = count - 1
+    return 4 + 80 + 2 * ((nj + 1) // 2) + 16 * -(-nj // ANCHOR_STRIDE)
 
 
 def _parse_anchored(raw: bytes):
@@ -258,7 +264,8 @@ class SpecialRowsPartition:
         # disk-destined lazy rows whose async device->host transfer is
         # still in flight: [(r, LazyFullRow)], drained opportunistically
         self._pending: list = []
-        self._pending_bytes = 0  # disk-destined rows still in flight
+        self._pending_bytes = 0  # their int32 bytes, pinned on the device
+        self._pending_floor = 0  # the least their files will take
         os.makedirs(dirpath, exist_ok=True)
         self._load_meta()
         self._save_meta()
@@ -299,7 +306,7 @@ class SpecialRowsPartition:
         fill at the rate their budgets allow, and the faster store is
         exhausted first rather than last."""
         nbytes = 8 * len(h) + 20
-        disk_used = self._disk_bytes + self._pending_bytes
+        disk_used = self._disk_bytes + self._pending_floor
         ram_fits = self._ram_bytes + nbytes <= self.ram_limit
         disk_fits = disk_used + nbytes <= self.disk_limit
         ram_frac = ((self._ram_bytes + nbytes) / self.ram_limit
@@ -329,8 +336,11 @@ class SpecialRowsPartition:
         nbytes = 8 * lazy.count + 20
         # in-flight rows charge the disk budget NOW (the write lands in
         # _drain later; without the charge a burst of lazy puts would
-        # oversubscribe the budget by the transfer window)
-        disk_used = self._disk_bytes + self._pending_bytes
+        # oversubscribe the budget by the transfer window), at the least
+        # their files will take: a row stays in flight until its launch's
+        # rows have all come (ops/strips.RowPacker), and a charge of its
+        # int32 bytes would move the launch's later rows to RAM
+        disk_used = self._disk_bytes + self._pending_floor
         ram_fits = self._ram_bytes + nbytes <= self.ram_limit
         disk_fits = disk_used + nbytes <= self.disk_limit
         ram_frac = ((self._ram_bytes + nbytes) / self.ram_limit
@@ -344,6 +354,7 @@ class SpecialRowsPartition:
             lazy.start()
             self._pending.append((r, lazy))
             self._pending_bytes += nbytes
+            self._pending_floor += _packed_floor(lazy.count)
             self._drain(block=False)
             # every in-flight row pins its device snapshots: cap the
             # queue in BYTES (blocking on the oldest) so slow copies
@@ -359,6 +370,7 @@ class SpecialRowsPartition:
         """Write the oldest in-flight row, waiting for its copy."""
         r, lazy = self._pending.pop(0)
         self._pending_bytes -= 8 * lazy.count + 20
+        self._pending_floor -= _packed_floor(lazy.count)
         self._wrote(r, write_row_packed(self.dir, r, lazy))
 
     def _wrote(self, r: int, nbytes: int) -> None:
@@ -417,6 +429,7 @@ class SpecialRowsPartition:
         for r, lz in self._pending:
             if r > i:
                 self._pending_bytes -= 8 * lz.count + 20
+                self._pending_floor -= _packed_floor(lz.count)
         self._pending = [(r, lz) for r, lz in self._pending if r <= i]
         gone = [r for r in self._disk if r > i]
         if gone:

@@ -2,8 +2,9 @@
 
 Each kernel source (``csrc/strip.cu``, ``csrc/batched_strip.cu``,
 ``csrc/roofline.cu`` and ``csrc/hop.cu``, which include
-``csrc/gotoh_cell.cuh``, the DP cell, and ``csrc/traceback.cu``, stage
-5's DP and walk) is compiled with ``nvcc`` for
+``csrc/gotoh_cell.cuh``, the DP cell, ``csrc/traceback.cu``, stage
+5's DP and walk, and ``csrc/rowpack.cu``, stage 1's disk rows packed a
+launch at a time) is compiled with ``nvcc`` for
 ``sm_90a`` into its own
 shared library with a plain C interface, at first use, into
 ``masa_tpu_torch/_build/`` (named by the source's hash, so an edited source
@@ -13,7 +14,8 @@ imported: the CPU tests import it on hosts with no toolkit.
 ``strip_cuda``, ``batched_strip_cuda``, ``batched_strip_fixed_cuda``,
 ``hop_cuda`` (a stage-2 hop in one launch), ``hop_prep_cuda`` and
 ``hop_match_cuda`` (the prologue and epilogue of a hop taller than a
-cluster holds) and ``traceback_cuda`` (stage 5's partitions) launch their
+cluster holds), ``traceback_cuda`` (stage 5's partitions) and
+``rowpack_cuda`` (special rows packed for the disk) launch their
 kernels on PyTorch's current stream and count
 their launches in ``.launches``; the roofline tool's launcher lives in
 ``masa_tpu_torch/tools/roofline.py``.
@@ -39,7 +41,7 @@ from masa_tpu_torch.utils import trace
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = {name: os.path.join(_PKG, "csrc", f"{name}.cu")
            for name in ("strip", "batched_strip", "roofline", "hop",
-                        "traceback")}
+                        "traceback", "rowpack")}
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -175,6 +177,9 @@ _SIGNATURES = {
     "traceback": {
         "masa_traceback_max_shared": [],
         "masa_traceback_launch": ["p"] * 3 + ["i", "p"] + ["i"] * 8 + ["p"],
+    },
+    "rowpack": {
+        "masa_rowpack_launch": ["p"] + ["i"] * 6 + ["p"] * 5 + ["i", "p"],
     },
 }
 
@@ -1034,3 +1039,61 @@ def traceback_cuda(a, b, items, *, match: int, mismatch: int,
 
 
 traceback_cuda.launches = 0
+
+
+# Half-rows one launch pair of csrc/rowpack.cu takes (their addresses
+# travel in the launch's parameters: TABLE there), and cells a block packs.
+ROWPACK_TABLE = 256
+ROWPACK_SPAN = 2048
+
+
+def rowpack_cuda(halves, layout, out: torch.Tensor) -> None:
+    """Special rows packed for the disk on the card (``csrc/rowpack.cu``;
+    the contract of ``wavefront.rowpack_plain``): each of ``halves``
+    (contiguous int32 tensors of ``layout.nj`` cells on ``out``'s device,
+    H then F of each of ``layout.rows`` rows) written into the uint8
+    buffer ``out`` as ``layout`` (a ``wavefront.RowPackLayout``) lays it
+    out: nibble bytes, anchors, the count of escapes, and the first
+    ``layout.cap`` escapes' positions (ascending) and exact values.  Two
+    launches a ``ROWPACK_TABLE`` half-rows, on the current stream."""
+    dev = out.device
+    if dev.type != "cuda":
+        raise ValueError(f"rowpack_cuda needs a CUDA buffer, got {dev}")
+    *sections, total = layout.offsets()
+    if out.dtype != torch.uint8 or out.dim() != 1 or not out.is_contiguous() \
+            or out.numel() < total:
+        raise ValueError(f"out must be a contiguous uint8 buffer of at least "
+                         f"{total} bytes")
+    if len(halves) != 2 * layout.rows:
+        raise ValueError(f"{len(halves)} half-rows for {layout.rows} rows")
+    for x in halves:
+        if x.device != dev or x.dtype != torch.int32 or x.dim() != 1 \
+                or not x.is_contiguous() or x.numel() != layout.nj:
+            raise ValueError(f"each half-row must be a contiguous int32 "
+                             f"tensor of {layout.nj} cells on {dev}")
+    if layout.nj >= 1 << 31 or layout.upad >= 1 << 31:
+        raise ValueError(f"a row of {layout.nj} cells")
+    table = np.array([x.data_ptr() for x in halves], np.int64)
+    vec = int(not (table % 16).any())
+    nblk = -(-layout.nj // ROWPACK_SPAN)
+    scratch = torch.empty(min(len(halves), ROWPACK_TABLE) * nblk,
+                          dtype=torch.int32, device=dev)
+    u, anc, cnt, esc = (out.data_ptr() + off for off in sections)
+    lib = load("rowpack")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        with _launch_events("rowpack"):
+            rc = lib.masa_rowpack_launch(
+                table.ctypes.data_as(ctypes.c_void_p), len(halves),
+                layout.nj, layout.stride, layout.anchors, layout.upad,
+                layout.cap, ctypes.c_void_p(u), ctypes.c_void_p(anc),
+                ctypes.c_void_p(cnt), ctypes.c_void_p(esc),
+                ctypes.c_void_p(scratch.data_ptr()), vec,
+                ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"rowpack kernel launch failed: CUDA error {rc} "
+                           f"({len(halves)} half-rows of {layout.nj} cells)")
+    rowpack_cuda.launches += 2 * -(-len(halves) // ROWPACK_TABLE)
+
+
+rowpack_cuda.launches = 0

@@ -28,10 +28,12 @@ in-launch rule.
 Special rows can stay where they were computed (``on_special_row_dev``,
 ``on_special_row_lazy``): each row is copied on the device, the copy goes
 to the row cache that stage 2 matches against, and the store gets a
-``RowPull`` that packs it on the device in masa_tpu's delta form and
-copies the packed bytes to pinned host memory on a side stream only when
-the store asks (``start``), so stage 1 neither waits on the copies nor
-encodes the rows on the host.  A reverse pass matched on the device
+``RowPull`` of it.  The rows the store asks for (``start``: those bound
+for disk) are packed on the device in masa_tpu's delta form a launch at
+a time, after the launch's rows have gone to the store (``RowPacker``:
+one kernel, then one copy of the whole batch to pinned host memory on a
+side stream), so stage 1 neither waits on the copies nor encodes or
+scans the rows on the host.  A reverse pass matched on the device
 (``want_dev_last``) keeps its last row there too.  Rows handed over at
 once (eager) are pulled as int32: masa_tpu pulls them packed on any
 device, but on the H100 the int32 pull is the faster (PERF.md).
@@ -54,6 +56,10 @@ from masa_tpu_torch.utils import trace
 
 # Device bytes the interior rows of one launch may hold (H and F, int32).
 FLUSH_ROWS_BYTES = 1 << 30
+# Device bytes a launch's rows take packed (RowPacker's buffer: an eighth
+# of their bytes for the nibbles, a 64th for the escape slots, and ~2 KiB
+# a row, 16 MiB at 8,192 rows, a launch of 2^22 rows at a row every 512).
+PACK_BYTES = FLUSH_ROWS_BYTES // 6
 # Columns per pruning chunk (and per --dump-blocks block): the window's
 # granularity, a cost the host pays per strip (ng = nj / 512 maxima), and
 # the grain of the kernel's decisions inside a launch.
@@ -76,51 +82,167 @@ class PartitionResult:
     dev_last: tuple | None = None  # (bus_h, bus_f) tensors, want_dev_last
 
 
+class RowPacker:
+    """The packed pulls of the disk-bound special rows of one partition's
+    launches, a batch at a time.
+
+    ``want`` adds a row to the open batch; ``close`` packs the batch's
+    rows where they lie in one call (``wavefront.rowpack``: one kernel a
+    batch on a card, the plain version on the CPU) into one buffer of
+    ``wavefront.RowPackLayout``, and on a card copies it into one pinned
+    host buffer on ``stream`` (a side stream, so the copy runs beside the
+    next launch) behind one event.  The buffer lives as long as the host
+    views of its rows (PyTorch's caching host allocator serves it to a
+    later batch once it is freed and its copy has run).  A packer with no
+    side stream (the CPU, or a row alone) has no copy to overlap and
+    closes each batch as its row is wanted, so a row's file lands in its
+    own ``put_lazy`` there, as it always has; on a card a launch's files
+    land once its batch has come, during the next launch (PERF.md)."""
+
+    def __init__(self, stream=None):
+        self.stream = stream
+        self.at_once = stream is None
+        self._open: list = []
+
+    def want(self, pull) -> None:
+        self._open.append(pull)
+        if self.at_once:
+            self.close()
+
+    def close(self) -> None:
+        """Pack the open batch's rows and start their copy to the host."""
+        rows, self._open = self._open, []
+        if not rows:
+            return
+        nj = rows[0].nj
+        if any(p.nj != nj for p in rows):
+            raise ValueError("a batch's rows differ in length")
+        layout = wf.RowPackLayout.of(len(rows), nj)
+        total = layout.offsets()[-1]
+        halves = [x for p in rows for x in (p.dev_h, p.dev_f)]
+        dev = halves[0].device
+        with trace.span("rows.pack"):
+            packed = torch.empty(total, dtype=torch.uint8, device=dev)
+            wf.rowpack(halves, layout, packed)
+            done = None
+            if dev.type == "cuda":
+                host = torch.empty(total, dtype=torch.uint8, pin_memory=True)
+                cur = torch.cuda.current_stream(dev)
+                side = self.stream if self.stream is not None else cur
+                if side != cur:
+                    side.wait_stream(cur)
+                with torch.cuda.stream(side):
+                    host.copy_(packed, non_blocking=True)
+                    done = torch.cuda.Event()
+                    done.record(side)
+                if side != cur:
+                    # keep the buffer from reuse until the copy has read it
+                    packed.record_stream(side)
+            else:
+                host = packed
+            batch = _Batch(layout, host, done)
+        for i, p in enumerate(rows):
+            p._batch, p._index = batch, i
+
+
+class _Batch:
+    """A closed batch: its layout, its host buffer and the views of it,
+    and the event behind its copy (None on the CPU)."""
+
+    def __init__(self, layout, host: torch.Tensor, done):
+        self.layout = layout
+        self.host = host
+        self.u, self.anc, self.cnt, self.esc = layout.views(host.numpy())
+        self.done = done
+
+    def ready(self) -> bool:
+        return self.done is None or self.done.query()
+
+    def wait(self) -> None:
+        if self.done is not None:
+            with trace.span("rows.pull"):
+                self.done.synchronize()
+            self.done = None
+
+
 class RowPull:
     """A special row on its device, copied to the host only on demand
     (the port of ``masa_tpu.ops.strips.RowPull``).
 
-    ``start()`` packs the row in masa_tpu's delta form on the compute
-    stream and copies the packed bytes into pinned host memory on
-    ``stream`` (a side stream, so the copy runs beside later work);
-    ``ready()`` asks whether they have landed; ``packed()`` waits for them
-    and gathers the escapes' exact values from the row on its device: the
-    form ``core/sra.write_row_packed`` persists.  ``rows()`` is the row
-    itself, copied as int32 on the side stream (a read of a RAM row).  On
-    the CPU the copies are immediate."""
+    ``start()`` hands the row to its ``RowPacker``, which packs it in
+    masa_tpu's delta form with the rest of its batch (on a card: the
+    launch's disk-bound rows, when ``run_partition`` closes the batch)
+    and copies the batch to the host at once; ``ready()`` asks whether the
+    bytes have landed; ``packed()`` and ``anchors()`` wait for them and
+    are views of the batch's host buffer: the form
+    ``core/sra.write_row_packed`` persists.  ``rows()`` is the row itself,
+    copied as int32 on the side stream (a read of a RAM row).  A row
+    without a packer packs alone, at once."""
 
     def __init__(self, dev_h: torch.Tensor, dev_f: torch.Tensor,
-                 stream=None):
+                 stream=None, packer: RowPacker | None = None):
         self.dev_h, self.dev_f = dev_h, dev_f
         self.nj = dev_h.numel()
         self._stream = stream
-        self._packed = None  # (DeltaPull of h, DeltaPull of f)
+        if packer is None:
+            packer = RowPacker(stream)
+            packer.at_once = True
+        self._packer = packer
+        self._wanted = False
+        self._batch = None  # the closed batch holding the row
+        self._index = 0     # the row's index in it
         self._host = None
         self._done = None
 
     def start(self) -> "RowPull":
-        """Begin the packed copy to the host (idempotent)."""
-        if self._packed is None:
-            self._packed = tuple(
-                wf.pull_row_delta_start(x, self.nj, self._stream,
-                                        snapshot=False)
-                for x in (self.dev_h, self.dev_f))
+        """Ask for the packed copy to the host (idempotent)."""
+        if not self._wanted:
+            self._wanted = True
+            self._packer.want(self)
         return self
 
     def ready(self) -> bool:
-        return self._packed is not None and all(
-            wf.delta_ready(x) for x in self._packed)
+        return self._batch is not None and self._batch.ready()
+
+    def _landed(self) -> "_Batch":
+        """The row's batch, closed and copied to the host."""
+        self.start()
+        if self._batch is None:
+            self._packer.close()  # a caller that cannot wait for the launch
+        self._batch.wait()
+        return self._batch
 
     def packed(self):
         """((u, esc_idx, esc_val) of h, the same of f): masa_tpu's packed
-        form, decoded by ``wavefront.decode_packed_row``."""
-        self.start()
-        return tuple(wf.packed_row_host(x) for x in self._packed)
+        form, decoded by ``wavefront.decode_packed_row``.  A half whose
+        escapes overflowed its slot takes the per-row path
+        (``wavefront.packed_row_host``: a host scan of its bytes and a
+        read of the escapes' values from the row)."""
+        b = self._landed()
+        i, cap, nbytes = self._index, b.layout.cap, b.layout.ubytes
+        out = [None, None]
+        with trace.span("rows.escapes"):
+            for s in (0, 1):
+                n = int(b.cnt[i, s])
+                if n <= cap:
+                    out[s] = (b.u[i, s, :nbytes], b.esc[i, s, 0, :n],
+                              b.esc[i, s, 1, :n])
+        if all(out):
+            trace.count("rows.card")
+        for s, x in enumerate((self.dev_h, self.dev_f)):
+            if out[s] is None:
+                out[s] = wf.packed_row_host(wf.DeltaPull(
+                    torch.from_numpy(b.u[i, s, :nbytes]), x, self.nj, None))
+        return tuple(out)
 
     def anchors(self, stride: int):
         """(anc_h, anc_f): int64 values at columns 0, stride, 2 stride, ...
-        < nj, gathered on the device (the index by which a window of a
-        disk row decodes alone)."""
+        < nj (the index by which a window of a disk row decodes alone):
+        the batch's where it packed at ``stride``, else gathered on the
+        device."""
+        if stride == wf.ANCHOR_STRIDE:
+            b = self._landed()
+            return b.anc[self._index, 0], b.anc[self._index, 1]
         idx = torch.arange(0, self.nj, stride, device=self.dev_h.device)
         with trace.span("rows.pull"):
             return tuple(wf.gather_device(x, idx).cpu().numpy()
@@ -317,6 +439,9 @@ def run_partition(
     specials: dict[int, tuple[np.ndarray, np.ndarray]] = {}
     side = (torch.cuda.Stream(dev) if on_special_row_lazy is not None
             and dev.type == "cuda" else None)
+    # the disk-bound rows of each launch pack and cross to the host
+    # together, once the launch's rows have gone to the store
+    packer = RowPacker(side) if on_special_row_lazy is not None else None
 
     def emit_special(r, h, f):
         if on_special_row_dev is not None or on_special_row_lazy is not None:
@@ -325,7 +450,7 @@ def run_partition(
         if on_special_row_dev is not None:
             on_special_row_dev(r, h, f)
         if on_special_row_lazy is not None:
-            on_special_row_lazy(r, RowPull(h, f, side))
+            on_special_row_lazy(r, RowPull(h, f, side, packer))
             return
         with trace.span("rows.pull"):
             bh = h.cpu().numpy().astype(np.int64)
@@ -471,6 +596,8 @@ def run_partition(
                 b, bi, bj = bests[-1]
                 on_special_best(i0, bi, bj, b)
             emit_special(i0, bus_h, bus_f)
+        if packer is not None:
+            packer.close()
         if stop_check and out is not None and stop_check(out, i0, hs, wl):
             break
 

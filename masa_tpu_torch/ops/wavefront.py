@@ -946,11 +946,6 @@ def pull_row_delta_start(bus, nj: int, stream=None,
         return DeltaPull(host, row, nj, done)
 
 
-def delta_ready(handle: DeltaPull) -> bool:
-    """Whether the packed bytes have landed on the host."""
-    return handle.done is None or handle.done.query()
-
-
 def packed_row_host(handle: DeltaPull):
     """The packed row as masa_tpu persists it: ``(u, esc_idx, esc_val)``,
     the packed bytes (uint8), the escapes' positions and their exact
@@ -980,3 +975,112 @@ def pull_row_delta(bus, nj: int) -> np.ndarray:
     to the host, and the row comes back exact as int64."""
     return pull_row_delta_finish(pull_row_delta_start(bus, nj,
                                                       snapshot=False))
+
+
+# ---------------------------------------------------------------------------
+# Special rows packed a batch at a time (``kernels.rowpack_cuda``, plain
+# version ``rowpack_plain``)
+# ---------------------------------------------------------------------------
+#
+# The disk-bound special rows of one stage-1 launch, H and F of each (its
+# two halves), go to the host together: each half's nibble bytes, its
+# escapes (positions ascending, exact values) and its anchors land in one
+# buffer, laid out by ``RowPackLayout``, that crosses in one copy.  The
+# host neither scans the bytes for escapes nor reads the row again.
+
+# Cells between the absolute values an MSRQ row file keeps (its anchors),
+# by which a window of a disk row decodes alone (core/sra.read_row_window).
+ANCHOR_STRIDE = 1 << 16
+
+
+def rowpack_capacity(nj: int) -> int:
+    """The escapes a half-row's slot holds: 64, and one more for every 256
+    cells (4,160 at 2^20 cells: 65 KiB of slot beside 512 KiB of nibble
+    bytes), at most ``nj``.  A half-row with more takes the per-row path
+    (``packed_row_host``)."""
+    return min(nj, 64 + nj // 256)
+
+
+class RowPackLayout(NamedTuple):
+    """The buffer of a batch of ``rows`` rows of ``nj`` cells: per half
+    (row r's H is half 2r, its F half 2r + 1) ``upad`` bytes of nibbles
+    (ceil(nj/2), then zeros to a multiple of 8), then per half its
+    ``anchors`` int64 values, its int64 count of escapes (past ``cap``,
+    the slot overflowed), and a slot of ``cap`` escape positions followed
+    by ``cap`` exact values (int64)."""
+
+    rows: int
+    nj: int
+    stride: int
+    cap: int
+
+    @classmethod
+    def of(cls, rows: int, nj: int) -> "RowPackLayout":
+        return cls(rows, nj, ANCHOR_STRIDE, rowpack_capacity(nj))
+
+    @property
+    def ubytes(self) -> int:
+        return (self.nj + 1) // 2
+
+    @property
+    def upad(self) -> int:
+        return -(-self.ubytes // 8) * 8
+
+    @property
+    def anchors(self) -> int:
+        return -(-self.nj // self.stride)
+
+    def offsets(self) -> tuple[int, int, int, int, int]:
+        """Byte offsets of the nibbles, anchors, counts and escapes, and
+        the buffer's size."""
+        halves = 2 * self.rows
+        anc = halves * self.upad
+        cnt = anc + 8 * halves * self.anchors
+        esc = cnt + 8 * halves
+        return 0, anc, cnt, esc, esc + 16 * halves * self.cap
+
+    def views(self, buf: np.ndarray):
+        """(nibbles (rows, 2, upad) uint8, anchors (rows, 2, anchors),
+        counts (rows, 2), escapes (rows, 2, 2, cap) int64) over the bytes
+        ``buf``."""
+        u, anc, cnt, esc, end = self.offsets()
+        k = self.rows
+        return (buf[u:anc].reshape(k, 2, self.upad),
+                buf[anc:cnt].view(np.int64).reshape(k, 2, self.anchors),
+                buf[cnt:esc].view(np.int64).reshape(k, 2),
+                buf[esc:end].view(np.int64).reshape(k, 2, 2, self.cap))
+
+
+def rowpack_plain(halves, layout: RowPackLayout, out: torch.Tensor) -> None:
+    """The plain version of ``kernels.rowpack_cuda``: each half-row of
+    ``halves`` (int32 tensors of ``layout.nj`` cells, H then F of each
+    row) packed into the uint8 buffer ``out`` by ``delta_pack_device``,
+    its escapes found by ``_escapes`` and their values and the anchors
+    gathered from the row.  Escape slots past a half's count keep what
+    ``out`` held."""
+    u, anc, cnt, esc = layout.views(out.numpy())
+    nj, cap = layout.nj, layout.cap
+    at = torch.arange(0, nj, layout.stride)
+    for q, x in enumerate(halves):
+        r, s = divmod(q, 2)
+        packed = delta_pack_device(x, nj).numpy()
+        u[r, s, :len(packed)] = packed
+        u[r, s, len(packed):] = 0
+        mark = _escapes(packed, nj)
+        cnt[r, s] = len(mark)
+        mark = mark[:cap]
+        esc[r, s, 0, :len(mark)] = mark
+        esc[r, s, 1, :len(mark)] = gather_device(
+            x, torch.from_numpy(mark)).numpy()
+        anc[r, s] = gather_device(x, at).numpy()
+
+
+def rowpack(halves, layout: RowPackLayout, out: torch.Tensor) -> None:
+    """Pack ``halves`` into ``out`` as ``layout`` says, where ``out``
+    lies: the plain version on the CPU, the kernel on a card."""
+    if out.device.type == "cpu":
+        rowpack_plain(halves, layout, out)
+    elif out.device.type == "cuda":
+        kernels.rowpack_cuda(halves, layout, out)
+    else:
+        raise ValueError(f"no row packing for device {out.device}")

@@ -58,11 +58,13 @@ NEG = -INF
 # The row cache's budget on the CPU, where its rows are host memory.
 CPU_ROW_CACHE_BYTES = 1 << 30
 # Device memory a stage-1 launch needs beside the rows it keeps: its
-# flushed rows (at most strips.FLUSH_ROWS_BYTES) and 64 MiB for the rest.
-# Measured on an H100 (chip_smoke.py, the CLI on the 1M pair): the call's
-# peak less its 127 kept rows was 1,111,567,840 bytes, the launch's
-# 1,065,349,152 bytes of flushed rows and 46,218,688 more.
-LAUNCH_MARGIN = strips.FLUSH_ROWS_BYTES + (64 << 20)
+# flushed rows (at most strips.FLUSH_ROWS_BYTES), its disk rows packed
+# (strips.PACK_BYTES) and 64 MiB for the rest.  Measured on an H100
+# (chip_smoke.py, the CLI on the 1M pair, before the rows were packed a
+# launch at a time): the call's peak less its 127 kept rows was
+# 1,111,567,840 bytes, the launch's 1,065,349,152 bytes of flushed rows
+# and 46,218,688 more.
+LAUNCH_MARGIN = strips.FLUSH_ROWS_BYTES + strips.PACK_BYTES + (64 << 20)
 
 
 class SpecialRowStore:

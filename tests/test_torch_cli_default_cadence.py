@@ -9,7 +9,7 @@ and indels (``masabench.pairs.homolog``), so that gapped paths are
 covered too.  Each answer is held to the benchmark's plain reference
 (``masabench.reference``), every limit 0.  The port's records are held
 to the work directory: the counter ``rows.bytes`` to the row files stage
-1 left, the ``status.save`` spans to one a row at least, the counter
+1 left and ``rows.card`` to its disk rows, the ``status.save`` spans to one a row at least, the counter
 ``hops.segments`` to stage 2's ``MarchStats`` in ``statistics_02.00``,
 and stage 2's file spans (``cps.write``, ``rows.remove``) to the
 crosspoints it appended and the row files it removed.  Stage 2 chains its
@@ -162,14 +162,17 @@ def test_the_answer_is_the_references(runs, name):
 @pytest.mark.parametrize("name", PAIRS)
 def test_the_byte_counter_is_the_row_files(runs, name):
     """``rows.bytes`` is the bytes of the row files stage 1 left, one a
-    disk row, as ``statistics_01.00`` books them; no other stage counts."""
+    disk row, as ``statistics_01.00`` books them, and ``rows.card`` the
+    disk rows packed in a batch (every one: none overflows its escape
+    slot); no other stage counts."""
     got = runs[name]
     counts, left = got["counts"], got["left"]
     assert len(left) == got["stats1"]["disk_rows"]
     assert counts[("stage1", "rows.bytes")] == sum(left.values()) \
         == got["stats1"]["disk_bytes"]
-    assert [k for k in counts if k[1].startswith("rows.")] == [
-        ("stage1", "rows.bytes")]
+    assert counts[("stage1", "rows.card")] == got["stats1"]["disk_rows"]
+    assert sorted(k for k in counts if k[1].startswith("rows.")) == [
+        ("stage1", "rows.bytes"), ("stage1", "rows.card")]
 
 
 @pytest.mark.parametrize("name", PAIRS)

@@ -12,6 +12,8 @@ port's dependencies lacks, so run them there with:
 
 Tolerance: exact equality (integer DP)."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -716,7 +718,7 @@ def test_row_pull_copies_on_a_side_stream(cuda):
     assert not pull.ready()
     pull.start()
     got = pull.packed()
-    assert pull.ready() and pull._packed[0].packed.is_pinned()
+    assert pull.ready() and pull._batch.host.is_pinned()
     want = RowPull(h.cpu(), f.cpu()).packed()
     for g, w in zip(got, want):
         for x, y in zip(g, w):
@@ -745,6 +747,130 @@ def test_packing_on_the_card_matches_cpu(cuda):
                                                                    nj))):
             assert np.array_equal(x, y)
         assert np.array_equal(wf.pull_row_delta(cpu.to(cuda), nj), v)
+
+
+def rowpack_halves(dev, rows, nj, seed):
+    """2 rows half-rows of nj cells on the card, each its own allocation
+    (as stage 1's rows are): walks of small steps with -INF stretches at
+    pruning's grain, a few steps past 7, one half dense with escapes (past
+    its slot) and one past 7 at its first cell."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randint(-5, 6, (2 * rows, nj), generator=g, device=dev,
+                      dtype=torch.int32).cumsum(1, dtype=torch.int32)
+    c = wf.PRUNE_CHUNK
+    x[0::3, :c] = NEG
+    x[1::5, 3 * c:5 * c] = NEG
+    x[2::7, nj - nj % c - c:] = NEG
+    x[3::4, nj // 2:] += 100
+    x[5] = torch.randint(8, 41, (nj,), generator=g, device=dev,
+                         dtype=torch.int32).cumsum(0, dtype=torch.int32)
+    x[6, 0] = 1000
+    return [h.clone() for h in x]
+
+
+def rowpack_both(halves, layout):
+    """The kernel's and the plain version's buffers of ``halves``, as
+    ``RowPackLayout.views``; the kernel's escape slots start at -1."""
+    dev = halves[0].device
+    total = layout.offsets()[-1]
+    out = torch.full((total,), 255, dtype=torch.uint8, device=dev)
+    kernels.rowpack_cuda(halves, layout, out)
+    plain = torch.zeros(total, dtype=torch.uint8)
+    wf.rowpack_plain([x.cpu() for x in halves], layout, plain)
+    torch.cuda.synchronize(dev)
+    return (layout.views(out.cpu().numpy()), layout.views(plain.numpy()))
+
+
+def assert_rowpack_equal(got, want, layout):
+    """Every output byte: the nibbles with their padding, the anchors,
+    the counts, and each half's escapes up to its count or its slot."""
+    (gu, ga, gc, ge), (wu, wa, wc, we) = got, want
+    assert np.array_equal(gu, wu) and np.array_equal(ga, wa)
+    assert np.array_equal(gc, wc)
+    for r in range(layout.rows):
+        for s in (0, 1):
+            n = min(int(wc[r, s]), layout.cap)
+            assert np.array_equal(ge[r, s, :, :n], we[r, s, :, :n]), (r, s)
+
+
+def test_rowpack_kernel_matches_plain_at_the_clis_shape(cuda):
+    """128 rows of 2^20 + 1 cells (a stage-1 launch of the 1M pair at the
+    CLI's defaults, and one cell more, so the last byte has a padding
+    nibble): the kernel's buffer is the plain version's, byte for byte;
+    the dense row overflows its slot, with its count."""
+    layout = wf.RowPackLayout.of(128, (1 << 20) + 1)
+    got, want = rowpack_both(rowpack_halves(cuda, 128, layout.nj, 26),
+                             layout)
+    assert_rowpack_equal(got, want, layout)
+    cnt = want[2].reshape(-1)
+    assert cnt[5] > layout.cap and (cnt > 0).mean() > 0.5
+
+
+def test_rowpack_kernel_in_chunks_and_unaligned(cuda):
+    """300 rows (600 half-rows: three launch pairs of 256) of an odd
+    length, and the same rows one cell into their storage (neither takes
+    the 16-byte loads), each the plain version's; one cell, one block and
+    a row just past a block."""
+    for rows, nj, off in ((300, 777, 0), (300, 777, 1), (3, 1, 0),
+                          (2, 2048, 1), (2, 2049, 0)):
+        layout = wf.RowPackLayout.of(rows, nj)
+        x = rowpack_halves(cuda, max(rows, 4), nj + off, rows + nj)
+        halves = [h[off:] for h in x[:2 * rows]]
+        got, want = rowpack_both(halves, layout)
+        assert_rowpack_equal(got, want, layout)
+    before = kernels.rowpack_cuda.launches
+    rowpack_both(halves[:2], wf.RowPackLayout.of(1, 2049))
+    assert kernels.rowpack_cuda.launches == before + 2
+
+
+def test_rowpack_wrapper_rejects_bad_inputs(cuda):
+    layout = wf.RowPackLayout.of(1, 100)
+    out = torch.empty(layout.offsets()[-1], dtype=torch.uint8, device=cuda)
+    h = torch.zeros(100, dtype=torch.int32, device=cuda)
+    for halves, buf in (([h], out), ([h, h.long()], out),
+                        ([h, h[:99]], out), ([h, h.cpu()], out),
+                        ([h, h], out[:-1]), ([h, h], out.cpu())):
+        with pytest.raises(ValueError):
+            kernels.rowpack_cuda(halves, layout, buf)
+
+
+def test_stage1_rows_on_the_card_are_the_cpus_files(cuda, tmp_path):
+    """A partition's special rows through a store on disk, the card's
+    launch packed in one batch and the CPU's row by row: the same files,
+    byte for byte, every row counted in rows.card on the card."""
+    from masa_tpu_torch.core import manager, sra
+    from masa_tpu_torch.ops import strips
+    from masa_tpu_torch.utils import trace
+
+    rng = np.random.default_rng(27)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    s1 = rng.choice(bases, 9000).astype(np.uint8)
+    s0 = s1[1000:5100].copy()
+    s0[::7] = rng.choice(bases, len(s0[::7]))
+    files = {}
+    for dev, rows in ((cuda, 1 << 22), (torch.device("cpu"), 512)):
+        d = str(tmp_path / dev.type)
+        store = sra.SpecialRowsPartition(d, 0, 0, len(s0), len(s1),
+                                         ram_limit=0, disk_limit=1 << 30)
+        trace.reset()
+        kernels.event_log = []
+        try:
+            strips.run_partition(
+                wf.StripConfig(rows=rows), torch.from_numpy(s0).to(dev),
+                torch.from_numpy(s1).to(dev), ScoreParams(),
+                InitType.WITH_ZEROES, InitType.WITH_ZEROES,
+                special_every=512, on_special_row_lazy=lambda r, p:
+                store.put_lazy(r, manager.LazyFullRow(p, 0, NEG)))
+            store.finalize()
+            card = trace.counts.get((None, "rows.card"))
+        finally:
+            kernels.event_log = None
+            trace.reset()
+        assert card == len(store._disk) == len(s0) // 512
+        files[dev.type] = {n: open(os.path.join(d, n), "rb").read()
+                           for n in sorted(os.listdir(d))
+                           if n.startswith("row.")}
+    assert files["cuda"] == files["cpu"]
 
 
 def test_hop_kernels_match_plain(cuda):
